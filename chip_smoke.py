@@ -1,24 +1,32 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of CNMGP posterior prediction on one CUDA card.
+"""Drive the PyTorch/CUDA port of CNMGP (DSVI training and posterior
+prediction) on one CUDA card.
 
     python3 chip_smoke.py
 
-In order: builds the three hand-written kernels from
+In order: builds the five hand-written kernels from
 `collaborative_nonstationary_multivariate_gaussian_process_tpu_torch/csrc`
 with nvcc; holds each kernel against its plain PyTorch version on the card
-at the serving shapes; serves `predict_Y`, `sample_Y` and `sample_FY` at the
-full ECoG width (D=78 outputs, M=100 inducing points, B=512 test points)
-from seeded random parameters, checks that every kernel of each path was
-launched, and holds each call, and the same call through the plain
-versions, against a float64 run on the same noise; serves the model the JAX
-package fitted to `sim_illustration_low_freq` (the committed fixture) and
-compares its predictions; times kernels, plain versions, the library
-yardstick and the requests with CUDA events, and profiles one `sample_Y`
-call.  The second-to-last line is a JSON object with one entry per kernel;
-the last line is
+at the shapes of the path (the serving forwards, and the two backward
+kernels of the quadratic form against float64); serves `predict_Y`,
+`sample_Y` and `sample_FY` at the full ECoG width (D=78 outputs, M=100
+inducing points, B=512 test points) from seeded random parameters, checks
+that every kernel of each path was launched, and holds each call, and the
+same call through the plain versions, against a float64 run on the same
+noise; serves the model the JAX package fitted to
+`sim_illustration_low_freq` (the committed fixture) and compares its
+predictions; trains an epoch by `inference()` at ECoG width (D=78, N=62,400,
+B=512), checks that all five kernels were launched and the losses are
+finite, and holds every parameter's gradient on one batch against float64;
+times training steps at ECoG and PM2.5-sub width (D=6, M=100, B=2000) with
+the kernels and with the plain versions, and profiles one step; fits
+`sim_illustration_low_freq` by `inference()` and holds the fit to the
+assertions of `tests/test_dsvi_e2e.py`; times kernels, plain versions, the
+library yardstick and the requests with CUDA events.  The second-to-last
+line is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Exits non-zero, printing no result, when no CUDA card is present or any
-check fails.
+Exits non-zero, printing no result, when no CUDA card is present, the port
+package is not beside this script, or any check fails.
 """
 
 from __future__ import annotations
@@ -40,6 +48,13 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 EPS32 = float(torch.finfo(torch.float32).eps)
 D_ECOG, M_ECOG, B_ECOG = 78, 100, 512  # scripts/bench_ecog.py:46-52
+D_PM, M_PM, B_PM, N_PM = 6, 100, 2000, 28_768  # bench.py:110-123
+TRAIN_STEPS = 20
+HYPERPARS = {  # tests/test_dsvi_e2e.py:32-40
+    "sigma2_L0_log": 0, "length_scales_L0_log": 2, "sigma2_L1_log": 0,
+    "length_scales_L1_log": 2, "sigma2_tildeell_log": 0, "length_scales_tildeell_log": 0,
+    "sigma2_err_log": -2,
+}
 S_CHUNK = 8
 N_DRAWS = 16
 JITTER = 1e-4
@@ -49,6 +64,7 @@ JITTER = 1e-4
 SLEEP_CYCLES = 10_000_000
 SLEEP_DOUBLINGS = 4
 FAILURES: list[str] = []
+PORT = "collaborative_nonstationary_multivariate_gaussian_process_tpu_torch"
 
 
 def check(ok: bool, what: str) -> None:
@@ -143,7 +159,10 @@ def ecog_request(seed: int):
 
 def profile_breakdown(fn, top: int = 8) -> None:
     """Profile one call: wall time, summed device-kernel time (its share of
-    the wall is the device's busy share) and the kernels that take most."""
+    the wall is the device's busy share), the number of kernels and those
+    that take most.  The optimizer's own annotation range on the device
+    timeline ("Optimizer.step#...") spans kernels already counted, so it is
+    left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -154,30 +173,287 @@ def profile_breakdown(fn, top: int = 8) -> None:
         fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and not e.key.startswith("Optimizer.")]
     busy = sum(e.device_time_total for e in events) / 1e3
     if not events:
         print(f"profile: wall {wall:.3f} ms; the profiler recorded no device time")
         return
-    print(f"profile: wall {wall:.3f} ms, device kernels {busy:.3f} ms "
-          f"(busy {busy / wall:.1%}, idle {1 - busy / wall:.1%})")
+    print(f"profile: wall {wall:.3f} ms, device kernels {busy:.3f} ms in "
+          f"{sum(e.count for e in events)} kernels (busy {busy / wall:.1%}, idle {1 - busy / wall:.1%})")
     for e in sorted(events, key=lambda e: -e.device_time_total)[:top]:
         print(f"profile:   {e.device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
 @contextmanager
 def plain_versions(ck):
-    """Route the three kernel wrappers to their plain PyTorch versions."""
+    """Route every kernel wrapper to its plain PyTorch version."""
     with ExitStack() as stack:
-        for name in ("gibbs", "chol_inv", "quadform_diag"):
+        for name in ck.KERNELS:
             stack.enter_context(mock.patch.object(ck, f"{name}_cuda", getattr(ck, f"{name}_plain")))
         yield
+
+
+def backward_kernels(ck, gen, dev):
+    """The quadform's two backward kernels at the training shapes (A (100,
+    512), lower-triangular W (3003, 100, 100), random vbar), each f32 result
+    held against float64 on the same inputs (kernel at most 3x the plain
+    version's error + 1e-6 of max), then timed.  Returns {name: (timing row,
+    max |kernel - plain|)}."""
+    G = D_ECOG * (D_ECOG - 1) // 2
+    M, N = M_ECOG, B_ECOG
+    A = torch.randn(M, N, device=dev, generator=gen)
+    W = 0.1 * torch.randn(G, M, M, device=dev, generator=gen).tril()
+    vbar = torch.randn(G, N, device=dev, generator=gen)
+    A64, W64, v64 = A.double(), W.double(), vbar.double()
+    # the library yardstick, the einsum composition of the plain versions
+    C = lambda: torch.einsum("mn,gmk->gnk", A, W)  # noqa: E731
+    library = {
+        "quadform_diag_dw": lambda: torch.einsum("mn,gnk->gmk", A, 2.0 * vbar[..., None] * C()),
+        "quadform_diag_da": lambda: torch.einsum("gmk,gnk->mn", W, 2.0 * vbar[..., None] * C()),
+    }
+    tri = 4 * G * M * (M + 1) // 2
+    n_bytes = {
+        "quadform_diag_dw": 4 * (M * N + G * N + G * M * M) + tri,
+        "quadform_diag_da": 4 * (M * N + G * N + M * N) + tri,
+    }
+    ops = 2 * G * N * M * (M + 1)  # M (M + 1) FMAs per (g, n): C, then the product
+    out = {}
+    for name in ("quadform_diag_dw", "quadform_diag_da"):
+        kern, plain = getattr(ck, f"{name}_cuda"), getattr(ck, f"{name}_plain")
+        got, ref, ref64 = kern(A, W, vbar), plain(A, W, vbar), plain(A64, W64, v64)
+        torch.cuda.synchronize()
+        err_k, err_p = rel_to_max(got, ref64)[1], rel_to_max(ref, ref64)[1]
+        abs_err = rel_to_max(got, ref)[0]
+        check(err_k <= 3 * err_p + 1e-6 and bool(torch.isfinite(got).all()),
+              f"{name} (3003,100,100)x(100,512) vs float64, of max: kernel {err_k:.3e}, plain "
+              f"{err_p:.3e}; tol 3x plain + 1e-6")
+        if name == "quadform_diag_dw":
+            check(torch.equal(got, got.tril()), "quadform_diag_dw writes zeros above the diagonal")
+        del got, ref, ref64
+        row = (device_ms(lambda: kern(A, W, vbar)), device_ms(lambda: plain(A, W, vbar)),
+               device_ms(library[name]), bound_ms(n_bytes[name], ops))
+        print(f"time {name} (3003,100,100)x(100,512): kernel {row[0]:.4f} ms on the device, plain "
+              f"{row[1]:.4f} ms, library {row[2]:.4f} ms, bound {row[3][0]:.4f} ms ({row[3][1]}), "
+              f"{row[3][0] / row[0]:.1%} of bound, {ops / (row[0] * 1e-3) / 1e9:.0f} GFLOP/s")
+        out[name] = (row, abs_err)
+    return out
+
+
+def ecog_lists():
+    """The ECoG-width synthetic data (scripts/bench_ecog.py:46-52): 78
+    outputs, each on the time axis 0..799, y = sin(t / 40)."""
+    t = np.arange(800.0)
+    return [t] * D_ECOG, [np.sin(t / 40.0)] * D_ECOG
+
+
+def pm25_data(dev):
+    """The PM2.5-sub-width synthetic data (bench.py:110-123): D=6, N=28,768
+    sorted inputs in [0, 1), random outputs, y = sin(7 x) + noise."""
+    rng = np.random.default_rng(0)
+    x = np.sort(rng.random(N_PM)).astype(np.float32)
+    idx = rng.integers(0, D_PM, N_PM)
+    y = (np.sin(7 * x) + 0.1 * rng.standard_normal(N_PM)).astype(np.float32)
+    T = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
+    return T(x), T(y), T(idx, torch.int64), torch.linspace(0.0, 1.0, M_PM, device=dev)
+
+
+def step_closure(td, tc, x, y, idx, Z, D, B, seed=0):
+    """One DSVI step on a batch of B rows drawn on the device, with fresh
+    noise, as `inference()` takes it (Adam, lr 0.005, length scales
+    frozen), from `init_params` with `seed`."""
+    dev, M = x.device, Z.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = tc.init_params(gen, D, M, device=dev)
+    params = tc.CNMGPParams(*(t.requires_grad_(True) for t in params))
+    step = td.make_train_step(td.make_optimizer(params, "adam", 0.005), float(x.shape[0]))
+    mask = td.freeze_mask(params, True)
+    w = torch.ones(B, device=dev)
+
+    def one():
+        sel = torch.randint(x.shape[0], (B,), device=dev, generator=gen)
+        noise = tc.draw_train_noise(gen, 1, M, B, D)
+        return step(params, mask, Z, x[sel], y[sel], idx[sel], w, noise)
+
+    return one
+
+
+def time_steps(one, n=TRAIN_STEPS):
+    """(median ms of a step synced alone, steps/s of n steps back to back,
+    their losses)."""
+    for _ in range(3):
+        one()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        per.append(1e3 * (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    losses = torch.stack([one() for _ in range(n)])
+    torch.cuda.synchronize()
+    return float(np.median(per)), n / (time.perf_counter() - t0), losses
+
+
+def training_rates(ck, td, tc, name, data, D, B):
+    """Steps/s and median step time with the kernels and with the plain
+    versions, in turns kernels, plain, plain, kernels."""
+    x, y, idx, Z = data
+    res = {}
+    for route in ("kernels", "plain", "plain", "kernels"):
+        with plain_versions(ck) if route == "plain" else ExitStack():
+            med, rate, losses = time_steps(step_closure(td, tc, x, y, idx, Z, D, B))
+        check(bool(torch.isfinite(losses).all()), f"{name} {route}: {TRAIN_STEPS} finite losses")
+        res.setdefault(route, []).append((med, rate))
+        print(f"train {name} ({route}): {rate:.2f} steps/s back to back, median step "
+              f"{med:.3f} ms synced, over {TRAIN_STEPS} steps")
+    return res
+
+
+def ecog_gradients(ck, tc, x, y, idx, Z, gen):
+    """Every parameter's gradient on one batch and one noise draw, with the
+    lengthscales set to 40 (dense priors), kernels and plain versions in f32
+    against the plain versions in float64.  A scalar hyperparameter's
+    gradient is a sum of many large terms that cancel, so one f32 run's
+    error is a noisy witness: the batch rows (and their noise) are also
+    taken in two other orders, the same sum rounded otherwise, and the
+    kernels' error may be at most 3x the worst plain error of the three
+    orders + 1e-5 of max."""
+    dev = x.device
+    params = tc.init_params(torch.Generator(device=dev).manual_seed(0), D_ECOG, M_ECOG,
+                            device=dev)
+    log40 = torch.tensor(math.log(40.0), device=dev)
+    params = params._replace(mu_v=torch.full((M_ECOG,), math.log(40.0), device=dev),
+                             length_scales_tildeell_log=log40, length_scales_L0_log=log40,
+                             length_scales_L1_log=log40)
+    sel = torch.randperm(x.shape[0], device=dev, generator=gen)[:B_ECOG]
+    noise = tc.draw_train_noise(gen, 1, M_ECOG, B_ECOG, D_ECOG)
+    w = torch.ones(B_ECOG, device=dev)
+    orders = [torch.arange(B_ECOG, device=dev)] + [
+        torch.randperm(B_ECOG, device=dev, generator=gen) for _ in range(2)]
+
+    def grads(dtype, order):
+        p = tc.CNMGPParams(*(t.detach().to(dtype).requires_grad_(True) for t in params))
+        nz = noise._replace(**{f: getattr(noise, f)[..., order] for f in ("z_te", "z_diag", "z_off")})
+        nz = tc.CNMGPNoise(*(None if z is None else z.to(dtype) for z in nz))
+        b = sel[order]
+        loss = tc.negative_selbo(p, Z.to(dtype), x[b].to(dtype), y[b].to(dtype), idx[b],
+                                 w.to(dtype), float(x.shape[0]), nz)
+        loss.backward()
+        return float(loss.detach()), [t.grad for t in p]
+
+    ck.reset_launches()
+    runs_k = [grads(torch.float32, o) for o in orders]
+    torch.cuda.synchronize()
+    launched = dict(ck.LAUNCHES)
+    with plain_versions(ck):
+        runs_p = [grads(torch.float32, o) for o in orders]
+        loss_64, g_64 = grads(torch.float64, orders[0])
+    check(all(launched[k] > 0 for k in ck.KERNELS),
+          f"ECoG gradient: three loss.backward() launched {launched}")
+    print(f"ECoG gradient batch: loss kernels {runs_k[0][0]:.6e}, plain {runs_p[0][0]:.6e}, "
+          f"float64 {loss_64:.6e}")
+    worst = 0.0
+    for i, (name, g64) in enumerate(zip(tc.CNMGPParams._fields, g_64)):
+        errs_k = [rel_to_max(r[1][i], g64)[1] for r in runs_k]
+        errs_p = [rel_to_max(r[1][i], g64)[1] for r in runs_p]
+        tol = 3 * max(errs_p) + 1e-5
+        worst = max(worst, errs_k[0] / tol)
+        check(errs_k[0] <= tol,
+              f"grad {name} vs float64, of max: kernels {errs_k[0]:.3e} (other orders "
+              f"{errs_k[1]:.3e}, {errs_k[2]:.3e}), plain " + ", ".join(f"{e:.3e}" for e in errs_p)
+              + "; tol 3x the worst plain + 1e-5")
+    print(f"ECoG gradients: worst kernel error / tolerance {worst:.3f}")
+
+
+def illustration_fit(ck, td, tp, sim):
+    """The fit of tests/test_dsvi_e2e.py:43-62 on the card (f32): 150
+    full-batch epochs of sim_illustration_low_freq(seed=22), M=10, the
+    length scales frozen, ELBO every 50 epochs over 30 draws; held to the
+    assertions of test_dsvi_e2e.py:65-117."""
+    X_list, Y_list, Xt_list, Yt_list = sim.sim_illustration_low_freq(seed=22)
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    res = td.inference(X_list, Y_list, np.linspace(0, 1, 10), batch_size=0, dim_outputs=2,
+                       lr=0.01, itnum=150, hyperpars=HYPERPARS, fix_hyperpars=True, seed=0,
+                       show_ELBO=True, elbo_every=50, elbo_samples=30)
+    fit_s = time.perf_counter() - t0
+    losses = np.asarray(res.loss_list)
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    check(bool(np.all(np.isfinite(losses))) and last < 0.5 * first,
+          f"illustration fit {fit_s:.2f} s, launches {dict(ck.LAUNCHES)}: mean loss of the first "
+          f"10 epochs {first:.4f}, of the last 10 {last:.4f} (must halve)")
+    check(res.elbo_trace[-1] > res.elbo_trace[0], f"illustration ELBO rises: {res.elbo_trace}")
+    p = res.params
+    check(float(p.length_scales_L0_log) == 2.0 and float(p.length_scales_L1_log) == 2.0
+          and float(p.length_scales_tildeell_log) == 0.0 and float(p.sigma2_err_log) != -2.0,
+          "illustration: frozen length scales exact, sigma2_err_log moved "
+          f"({float(p.sigma2_err_log):.4f})")
+    y_test = np.concatenate([np.ravel(yt) for yt in Yt_list])
+    ys = tp.sample_Y(p, res.Z, Xt_list, n_sample=50, seed=0)[0].cpu().numpy()
+    rmse = float(np.sqrt(np.mean((ys.mean(0) - y_test) ** 2)))
+    check(rmse < float(np.std(y_test)),
+          f"illustration sample_Y x50: rmse {rmse:.4f} < std(y_test) {np.std(y_test):.4f}")
+    est = tp.predict_Y(p, res.Z, Xt_list).cpu().numpy()
+    ys400 = tp.sample_Y(p, res.Z, Xt_list, n_sample=400, seed=1)[0].cpu().numpy()
+    corr = float(np.corrcoef(est, ys400.mean(0))[0, 1])
+    check(corr > 0.9, f"illustration predict_Y vs mean of 400 draws: corr {corr:.4f} > 0.9")
+
+
+def training(ck, td, tc, tp, sim, dev, gen, smi):
+    """The training phases; returns the launches of one ECoG epoch."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils.data import (
+        flatten_output_lists,
+    )
+
+    torch.cuda.reset_peak_memory_stats()
+    X_list, Y_list = ecog_lists()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    res = td.inference(X_list, Y_list, np.linspace(0.0, 800.0, M_ECOG), batch_size=B_ECOG,
+                       dim_outputs=D_ECOG, lr=0.005, itnum=1, seed=0, show_ELBO=False)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    launched = dict(ck.LAUNCHES)
+    losses = np.asarray(res.loss_list)
+    check(all(launched[k] > 0 for k in ck.KERNELS) and bool(np.all(np.isfinite(losses))),
+          f"ECoG epoch by inference() (D=78, N=62,400, M=100, B=512, {len(losses)} steps, "
+          f"{epoch_s:.2f} s with set-up): finite losses {losses[0]:.4e} .. {losses[-1]:.4e}, "
+          f"launches {launched}")
+    print(f"peak device memory of the ECoG epoch {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    flat = flatten_output_lists(X_list, Y_list)
+    data = (torch.as_tensor(flat.x, dtype=torch.float32, device=dev),
+            torch.as_tensor(flat.y, dtype=torch.float32, device=dev),
+            torch.as_tensor(flat.idx, dtype=torch.int64, device=dev),
+            torch.linspace(0.0, 800.0, M_ECOG, device=dev))
+    ecog_gradients(ck, tc, *data, gen)
+    rates = {"ECoG": training_rates(ck, td, tc, "ECoG D=78 M=100 B=512", data, D_ECOG, B_ECOG)}
+    one = step_closure(td, tc, *data, D_ECOG, B_ECOG)
+    print(f"profile of one ECoG training step ({smi}):")
+    profile_breakdown(one)
+    rates["PM2.5-sub"] = training_rates(ck, td, tc, "PM2.5-sub D=6 M=100 B=2000", pm25_data(dev),
+                                        D_PM, B_PM)
+    print("profile of one PM2.5-sub training step:")
+    profile_breakdown(step_closure(td, tc, *pm25_data(dev), D_PM, B_PM))
+    for cell, r in rates.items():
+        k = [rate for _, rate in r["kernels"]]
+        pl = [rate for _, rate in r["plain"]]
+        print(f"train {cell}: kernels {k[0]:.2f} / {k[1]:.2f} steps/s, plain versions "
+              f"{pl[0]:.2f} / {pl[1]:.2f} steps/s ({smi})")
+    illustration_fit(ck, td, tp, sim)
+    return launched
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if not (Path(__file__).resolve().parent / PORT).is_dir():
+        print(f"chip_smoke: the package {PORT} is not beside this script", file=sys.stderr)
+        return 2
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer import dsvi
     from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import (
         cnmgp,
         predict,
@@ -189,6 +465,7 @@ def main() -> int:
     from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops.kernels import (
         rbf,
     )
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils import sim
     from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils.metrics import (
         predictive_summary,
     )
@@ -286,6 +563,7 @@ def main() -> int:
     qf_err, qf_rel = rel_to_max(V, V_ref)
     # sums of 100 products, then of 100 squares, in another order
     check(qf_rel <= 1e-4, f"quadform_diag (8,3003,512): max err {qf_err:.3e} ({qf_rel:.3e} of max|V|), tol 1e-4")
+    backward = backward_kernels(ck, gen, dev)
 
     # ----------------------------------------- serving at full ECoG width
     params = cnmgp.init_params(torch.Generator(device=dev).manual_seed(0), D_ECOG, M_ECOG,
@@ -306,13 +584,15 @@ def main() -> int:
     noise_y = cnmgp.draw_noise(ngen, N_DRAWS, M_ECOG, B_ECOG, D_ECOG)
     noise_fy = cnmgp.draw_noise(ngen, S_CHUNK, M_ECOG, 64, D_ECOG, all_outputs=True)
 
+    forwards = {"gibbs", "chol_inv", "quadform_diag"}
+
     def serving_calls(p, ny, nfy):
         return {
             "predict_Y": (lambda: (predict.predict_Y(p, Zn, X_list),), {"gibbs"}),
             "sample_Y": (lambda: predict.sample_Y(p, Zn, X_list, n_sample=N_DRAWS, noise=ny),
-                         set(ck.KERNELS)),
+                         forwards),
             "sample_FY": (lambda: predict.sample_FY(p, Zn, x_fy, n_sample=S_CHUNK, noise=nfy),
-                          set(ck.KERNELS)),
+                          forwards),
         }
 
     calls = serving_calls(params, noise_y, noise_fy)
@@ -418,7 +698,14 @@ def main() -> int:
     profile_breakdown(calls["sample_Y"][0])
     print("profile of one predict_Y call (D=78, M=100, B=512):")
     profile_breakdown(calls["predict_Y"][0])
-    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"peak device memory of the serving phases {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"launches on the serving paths: {launches}")
+
+    # ------------------------------------------------------------- training
+    trained = training(ck, dsvi, cnmgp, predict, sim, dev, gen, smi)
+    print(f"launches in one ECoG training epoch: {trained}")
+    for k in ck.KERNELS:
+        launches[k] += trained[k]
 
     src = "collaborative_nonstationary_multivariate_gaussian_process_tpu_torch/csrc/"
     tpu = "collaborative_nonstationary_multivariate_gaussian_process_tpu/ops/pallas_kernels.py"
@@ -427,6 +714,9 @@ def main() -> int:
         ("chol_inv", f"{tpu}:357", chol_err),
         ("quadform_diag", f"{tpu}:577", qf_err),
     ]
+    for n, line in (("quadform_diag_dw", 648), ("quadform_diag_da", 667)):
+        rows.append((n, f"{tpu}:{line}", backward[n][1]))
+        times[n] = backward[n][0]
     kernels = []
     for n, r, e in rows:
         k_ms, p_ms, l_ms, (b_ms, b_by) = times[n]

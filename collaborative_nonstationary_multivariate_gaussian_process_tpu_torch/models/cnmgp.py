@@ -1,15 +1,18 @@
-"""CNMGP posterior prediction in PyTorch.
+"""CNMGP in PyTorch: the stochastic ELBO and posterior prediction.
 
-The serving half of the JAX package's `models/cnmgp.py`: the parameter
-tuple and its packing, the conditioning of every latent process at the test
-inputs, and one posterior-predictive draw per leading row of noise.  Where
-the JAX package vmaps one draw over keys, the functions here carry a
-leading draw dimension S and take their standard-normal noise as explicit
-tensors (`CNMGPNoise`), so a test can feed both packages the same numbers.
+The JAX package's `models/cnmgp.py`: the parameter tuple and its packing,
+the conditioning of every latent process at a batch of inputs, the negative
+stochastic ELBO that DSVI minimizes (reconstruction and the whitened KLs),
+its Monte-Carlo estimate, and one posterior-predictive draw per leading row
+of noise.  Where the JAX package vmaps one draw over keys, the functions
+here carry a leading draw dimension S and take their standard-normal noise
+as explicit tensors (`CNMGPNoise`), so a test can feed both packages the
+same numbers.
 """
 
 from __future__ import annotations
 
+import math
 from functools import partial
 from typing import Mapping, NamedTuple, Optional, Union
 
@@ -22,8 +25,11 @@ from ..ops.linalg import (
     chol_tri_inv,
     chol_tri_inv_robust,
     conditional_projection,
+    kl_gaussian_ref_compat,
+    kl_gaussian_white,
     mgp_mean,
     mgp_mean_var_white,
+    regularized_diag,
     sample_diag,
     sample_full_cov,
     tri_solve_white,
@@ -42,6 +48,9 @@ __all__ = [
     "pack_U",
     "unpack_U",
     "draw_noise",
+    "draw_train_noise",
+    "negative_selbo",
+    "elbo_estimate",
     "sample_y_once",
     "sample_fy_once",
     "predict_y_mean",
@@ -82,11 +91,22 @@ def init_params(
     num_inducing: int,
     dtype=DEFAULT_DTYPE,
     device=None,
+    mu_v=None,
+    mu_W=None,
+    mu_U=None,
+    sqrt_v=None,
+    sqrt_W=None,
+    sqrt_U=None,
+    sqrt_scale: float = 0.1,
 ) -> CNMGPParams:
     """Random initialization with the reference's defaults (nmgp_dsvi.py:
-    115-155): 0.1-scaled Gaussian means and factors, mu_v = -4, hyper logs
-    (0, -4, 0, -4, 0, -4, -2).  Draws on the generator's device; the same
-    seed gives other numbers than the JAX `init_params`."""
+    115-155): 0.1-scaled Gaussian means, `sqrt_scale`-scaled factors, mu_v =
+    -4, hyper logs (0, -4, 0, -4, 0, -4, -2).  Each of mu_v, mu_W, mu_U,
+    sqrt_v, sqrt_W, sqrt_U may be given instead (an array or tensor); mu_U
+    and sqrt_U in the packed (G, ...) layout or as a dense (D, D, ...) table,
+    which is packed.  Draws on the generator's device, always all five
+    arrays in the same order; the same seed gives other numbers than the
+    JAX `init_params`."""
     device = resolve_device(device)
     D, M = dim_outputs, num_inducing
     G = D * (D + 1) // 2
@@ -95,19 +115,28 @@ def init_params(
         z = torch.randn(shape, generator=generator, dtype=dtype, device=generator.device)
         return z.to(device)
 
-    mu_W = 0.1 * normal(D, M)
-    sqrt_W = 0.1 * normal(D, M, M)
-    sqrt_v = 0.1 * normal(M, M)
-    mu_U = 0.1 * normal(G, M)
-    sqrt_U = 0.1 * normal(G, M, M)
+    def given(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    def given_U(a, packed_ndim):
+        a = given(a)
+        return pack_U(a) if a.ndim == packed_ndim + 1 else a
+
+    draws = dict(
+        mu_W=0.1 * normal(D, M),
+        sqrt_W=sqrt_scale * normal(D, M, M),
+        sqrt_v=sqrt_scale * normal(M, M),
+        mu_U=0.1 * normal(G, M),
+        sqrt_U=sqrt_scale * normal(G, M, M),
+    )
     z = partial(torch.tensor, dtype=dtype, device=device)
     return CNMGPParams(
-        mu_v=torch.full((M,), -4.0, dtype=dtype, device=device),
-        sqrt_v=sqrt_v,
-        mu_W=mu_W,
-        sqrt_W=sqrt_W,
-        mu_U=mu_U,
-        sqrt_U=sqrt_U,
+        mu_v=given(mu_v) if mu_v is not None else torch.full((M,), -4.0, dtype=dtype, device=device),
+        sqrt_v=given(sqrt_v) if sqrt_v is not None else draws["sqrt_v"],
+        mu_W=given(mu_W) if mu_W is not None else draws["mu_W"],
+        sqrt_W=given(sqrt_W) if sqrt_W is not None else draws["sqrt_W"],
+        mu_U=given_U(mu_U, 2) if mu_U is not None else draws["mu_U"],
+        sqrt_U=given_U(sqrt_U, 3) if sqrt_U is not None else draws["sqrt_U"],
         sigma2_tildeell_log=z(0.0),
         length_scales_tildeell_log=z(-4.0),
         sigma2_L0_log=z(0.0),
@@ -176,7 +205,9 @@ class CNMGPNoise(NamedTuple):
 
     In the JAX package one draw's key splits into (k_lat, k_g, k_y) and
     k_lat into (k_v, k_te, k_diag, k_off) (cnmgp.py:549, :254); k_v splits
-    into the two halves of `sample_full_cov` (linalg.py:167).
+    into the two halves of `sample_full_cov` (linalg.py:167).  A training
+    step (`negative_selbo`) uses only the first five; z_g and z_y are None
+    there (`draw_train_noise`).
     """
 
     z_v1: torch.Tensor  # (S, M)      inducing log-lengthscale draw, L z1
@@ -184,22 +215,21 @@ class CNMGPNoise(NamedTuple):
     z_te: torch.Tensor  # (S, B)      log-lengthscale process at x
     z_diag: torch.Tensor  # (S, D, B) log of the diagonal coefficients
     z_off: torch.Tensor  # (S, T0, B) offdiag coefficients, T0 = D(D-1)/2
-    z_g: torch.Tensor  # (S, D, B)    latent functions g
-    z_y: torch.Tensor  # (S, B) for sample_y_once, (S, B, D) for sample_fy_once
+    z_g: Optional[torch.Tensor]  # (S, D, B) latent functions g
+    z_y: Optional[torch.Tensor]  # (S, B) for sample_y_once, (S, B, D) for sample_fy_once
 
 
-def draw_noise(
+def draw_train_noise(
     generator: torch.Generator,
     n_draws: int,
     num_inducing: int,
     n_points: int,
     dim_outputs: int,
-    all_outputs: bool = False,
     dtype=DEFAULT_DTYPE,
 ) -> CNMGPNoise:
-    """Fresh standard-normal noise for `n_draws` draws at `n_points` inputs,
-    on the generator's device.  `all_outputs` shapes z_y (S, B, D), as
-    `sample_fy_once` needs, instead of (S, B)."""
+    """The standard-normal noise of `n_draws` ELBO draws at `n_points`
+    inputs (z_v1, z_v2, z_te, z_diag, z_off; z_g and z_y None), on the
+    generator's device.  A training step takes n_draws = 1."""
     S, M, B, D = n_draws, num_inducing, n_points, dim_outputs
 
     def normal(*shape):
@@ -211,18 +241,48 @@ def draw_noise(
         z_te=normal(S, B),
         z_diag=normal(S, D, B),
         z_off=normal(S, D * (D - 1) // 2, B),
-        z_g=normal(S, D, B),
-        z_y=normal(S, B, D) if all_outputs else normal(S, B),
+        z_g=None,
+        z_y=None,
     )
 
 
+def draw_noise(
+    generator: torch.Generator,
+    n_draws: int,
+    num_inducing: int,
+    n_points: int,
+    dim_outputs: int,
+    all_outputs: bool = False,
+    dtype=DEFAULT_DTYPE,
+) -> CNMGPNoise:
+    """Fresh standard-normal noise for `n_draws` predictive draws at
+    `n_points` inputs, on the generator's device: `draw_train_noise`'s
+    fields, then z_g and z_y.  `all_outputs` shapes z_y (S, B, D), as
+    `sample_fy_once` needs, instead of (S, B)."""
+    S, B, D = n_draws, n_points, dim_outputs
+    noise = draw_train_noise(generator, S, num_inducing, B, D, dtype)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, dtype=dtype, device=generator.device)
+
+    return noise._replace(z_g=normal(S, D, B), z_y=normal(S, B, D) if all_outputs else normal(S, B))
+
+
 class _Latents(NamedTuple):
-    """What a predictive draw needs from the conditioned latents (S draws)."""
+    """The conditioned latents of S draws, the fields of the JAX `_Latents`
+    with a leading S.  Prior order everywhere: [tildeell, L0, L1, G]."""
 
     L_full: torch.Tensor  # (S, B, D, D) sampled coefficient matrices
     mu_g: torch.Tensor  # (S, D, B)
     sigma2_g: torch.Tensor  # (S, D, B)
     tilde_ell: torch.Tensor  # (S, B)
+    sampled_v: torch.Tensor  # (S, M)
+    Lp_all: torch.Tensor  # (S, 4, M, M) chol of (K22 + jI)
+    Lp_inv: torch.Tensor  # (S, 4, M, M) their triangular inverses
+    Wh_v: torch.Tensor  # (S, M, M)      Lp_te^-1 tril(sqrt_v)
+    Wh_off: torch.Tensor  # (S, T0, M, M) Lp_L0^-1 tril(sqrt_U)[offdiag]
+    Wh_diag: torch.Tensor  # (S, D, M, M)  Lp_L1^-1 tril(sqrt_U)[diag]
+    Wh_W: torch.Tensor  # (S, D, M, M)  Lp_G^-1 tril(sqrt_W)
 
 
 def _sample_latents(
@@ -297,11 +357,12 @@ def _sample_latents(
     var_te = torch.clamp(s2_te - torch.sum(A_te * A_te, dim=-2), min=0.0)
     tilde_ell = torch.clamp(sample_diag(mu_te, var_te, noise.z_te, jitter), -30.0, 30.0)
     ell_X = torch.exp(tilde_ell)
+    Wh_v = torch.matmul(Lp_inv[:, 0], Lt_v)  # (S, M, M)
 
     # --- coefficient matrix L(x); packed [:T0] offdiag, [T0:] diag --------
     T0 = D * (D - 1) // 2
     Sigma_U_tril = tril_fn(params.sqrt_U)  # (G, M, M)
-    mean_d, var_d, _ = mgp_mean_var_white(
+    mean_d, var_d, Wh_diag = mgp_mean_var_white(
         A_L1, Lp_inv[:, 2], s2_L1, params.mu_U[T0:], Sigma_U_tril[T0:]
     )
     L_diag = torch.exp(sample_diag(mean_d, var_d, noise.z_diag, jitter))  # (S, D, B)
@@ -309,21 +370,114 @@ def _sample_latents(
     L_full = torch.zeros((S, B, D, D), dtype=dtype, device=x.device)
     if D > 1:
         ii, jj = (torch.as_tensor(a, device=x.device) for a in np.tril_indices(D, k=-1))
-        mean_o, var_o, _ = mgp_mean_var_white(
+        mean_o, var_o, Wh_off = mgp_mean_var_white(
             A_L0, Lp_inv[:, 1], s2_L0, params.mu_U[:T0], Sigma_U_tril[:T0]
         )
         L_off = sample_diag(mean_o, var_o, noise.z_off, jitter)  # (S, T0, B)
         L_full[:, :, ii, jj] = L_off.transpose(-1, -2)
+    else:
+        Wh_off = torch.zeros((S, 0, M, M), dtype=dtype, device=x.device)
     dd = torch.arange(D, device=x.device)
     L_full[:, :, dd, dd] = L_diag.transpose(-1, -2)
 
     # --- shared latents g (analytic marginal stats) ----------------------
     K_G_12 = gibbs(x, Z, ell_X, ell_Z, sigma2_g)  # (S, B, M)
     A_G = tri_solve_white(Lp_all[:, 3], Lp_inv[:, 3], K_G_12.transpose(-1, -2))
-    mu_g, s2_g, _ = mgp_mean_var_white(
+    mu_g, s2_g, Wh_W = mgp_mean_var_white(
         A_G, Lp_inv[:, 3], sigma2_g, params.mu_W, tril_fn(params.sqrt_W)
     )
-    return _Latents(L_full=L_full, mu_g=mu_g, sigma2_g=s2_g, tilde_ell=tilde_ell)
+    return _Latents(
+        L_full=L_full, mu_g=mu_g, sigma2_g=s2_g, tilde_ell=tilde_ell, sampled_v=sampled_v,
+        Lp_all=Lp_all, Lp_inv=Lp_inv, Wh_v=Wh_v, Wh_off=Wh_off, Wh_diag=Wh_diag, Wh_W=Wh_W,
+    )
+
+
+def _kl_terms(params: CNMGPParams, lat: _Latents, jitter=DSVI_JITTER, kl_mode="true"):
+    """The three KL groups (kl_W, kl_v, kl_U), each (S,), from the pieces
+    `_sample_latents` computed (JAX `_kl_terms`, cnmgp.py:386-454).
+    kl_mode "true": the exact KL of the regularized factor family, from the
+    whitened factors Wh and the regularized diagonals.  "ref_compat": the
+    reference's KL on raw tril factors, its diagonal-only trace included."""
+    D = params.num_outputs
+    T0 = D * (D - 1) // 2
+    Lp_diag = torch.diagonal(lat.Lp_all, dim1=-2, dim2=-1)  # (S, 4, M)
+    logdet_p = torch.sum(torch.log(Lp_diag), dim=-1)  # (S, 4)
+
+    def kl(mu_q, sqrt_q, wh, prior, grouped):
+        # a group of G factors broadcasts (S, 1) prior scalars against (S, G)
+        ld = logdet_p[:, prior, None] if grouped else logdet_p[:, prior]
+        lp_inv = lat.Lp_inv[:, prior]
+        if kl_mode == "ref_compat":
+            lp_d = Lp_diag[:, prior, None, :] if grouped else Lp_diag[:, prior]
+            out = kl_gaussian_ref_compat(mu_q, tril_mask(sqrt_q), lp_d, ld, lp_inv, jitter)
+        else:
+            out = kl_gaussian_white(mu_q, regularized_diag(sqrt_q, jitter), wh, ld, lp_inv)
+        return torch.sum(out, dim=-1) if grouped else out
+
+    kl_W = kl(params.mu_W, params.sqrt_W, lat.Wh_W, 3, True)
+    kl_v = kl(params.mu_v, params.sqrt_v, lat.Wh_v, 0, False)
+    kl_U = kl(params.mu_U[T0:], params.sqrt_U[T0:], lat.Wh_diag, 2, True)
+    if D > 1:
+        kl_U = kl_U + kl(params.mu_U[:T0], params.sqrt_U[:T0], lat.Wh_off, 1, True)
+    return kl_W, kl_v, kl_U
+
+
+def _reconstruction(params: CNMGPParams, lat: _Latents, y, idx, weight):
+    """Weighted reconstruction term of each draw, (S,) (JAX
+    `_reconstruction`, cnmgp.py:457-479; nmgp_dsvi.py:255-258).  `weight` is
+    the 0/1 mask of a padded batch."""
+    rows = torch.arange(y.shape[0], device=y.device)
+    sampled_l = lat.L_full[:, rows, idx, :]  # (S, B, D)
+    s2_err = torch.exp(params.sigma2_err_log)
+    F = torch.sum(sampled_l * lat.mu_g.transpose(-1, -2), dim=-1)  # (S, B)
+    log_pdf = (
+        -((y - F) ** 2) / (2.0 * s2_err)
+        - 0.5 * params.sigma2_err_log
+        - 0.5 * math.log(2.0 * math.pi)
+    )
+    recon = torch.sum(log_pdf * weight, dim=-1)
+    correction = 0.5 / s2_err * torch.sum(
+        sampled_l**2 * lat.sigma2_g.transpose(-1, -2) * weight[:, None], dim=(-2, -1)
+    )
+    return recon - correction
+
+
+def negative_selbo(
+    params: CNMGPParams, Z, x, y, idx, weight, n_total, noise: CNMGPNoise,
+    jitter=DSVI_JITTER, kl_mode="true",
+):
+    """-SELBO of one minibatch (JAX `negative_selbo`, cnmgp.py:482-506; the
+    reference's `NMGP.forward`, nmgp_dsvi.py:157-301), a scalar tensor.
+
+    x (B,) or (B, d) inputs; y (B,); idx (B,) output rows; weight (B,) 0/1
+    mask of padding; n_total the number of observations.  `noise` comes
+    from `draw_train_noise` with one draw (S = 1); with more, the estimate
+    is their mean.
+    """
+    lat = _sample_latents(params, Z, x, noise, jitter, kl_mode=kl_mode)
+    batch_size = torch.sum(weight)
+    recon = _reconstruction(params, lat, y, idx, weight)
+    kl_W, kl_v, kl_U = _kl_terms(params, lat, jitter, kl_mode)
+    selbo = n_total / batch_size * recon - kl_W - kl_v - kl_U
+    return -torch.mean(selbo)
+
+
+def elbo_estimate(
+    params: CNMGPParams, Z, x, y, idx, noise: CNMGPNoise, jitter=DSVI_JITTER,
+    kl_mode="true", draws_per_chunk: int = 8,
+):
+    """Monte-Carlo ELBO over the full data (JAX `elbo_estimate`,
+    cnmgp.py:509-531; reference `compute_ELBO`), one draw per leading row of
+    `noise` (`draw_train_noise(gen, n_sample, ...)`), run `draws_per_chunk`
+    draws at a time to bound device memory.  Returns mean(recon) - mean(KL)."""
+    weight = torch.ones_like(y)
+    recons, kls = [], []
+    for start in range(0, noise.z_v1.shape[0], draws_per_chunk):
+        chunk = CNMGPNoise(*(None if z is None else z[start:start + draws_per_chunk] for z in noise))
+        lat = _sample_latents(params, Z, x, chunk, jitter, kl_mode=kl_mode)
+        recons.append(_reconstruction(params, lat, y, idx, weight))
+        kls.append(sum(_kl_terms(params, lat, jitter, kl_mode)))
+    return torch.mean(torch.cat(recons)) - torch.mean(torch.cat(kls))
 
 
 def sample_y_once(params: CNMGPParams, Z, x, idx, noise: CNMGPNoise, jitter=DSVI_JITTER,

@@ -37,7 +37,8 @@ def _flat_inputs(X_list: Sequence, index: Optional[Sequence[int]], dtype, device
 def _setup(params: CNMGPParams, Z, device):
     device = resolve_device(device)
     params = cnmgp.params_to(params, device)
-    Z = torch.as_tensor(np.asarray(Z).reshape(-1), dtype=params.mu_v.dtype, device=device)
+    Z = torch.as_tensor(Z if torch.is_tensor(Z) else np.asarray(Z), dtype=params.mu_v.dtype,
+                        device=device).reshape(-1)
     return params, Z, device
 
 

@@ -1,14 +1,19 @@
-"""Hand-written CUDA kernels of the serving path, with their plain versions.
+"""Hand-written CUDA kernels of the training and serving paths, with their
+plain versions.
 
-The counterpart of the JAX package's `ops/pallas_kernels.py`.  Three TPU
-kernels are on the serving path, and each has here:
+The counterpart of the JAX package's `ops/pallas_kernels.py`.  Five TPU
+kernels are on the path (the forwards of the Gibbs gram, the fused
+Cholesky + triangular inverse and the variance quadratic form, and the two
+backward kernels of the quadratic form), and each has here:
 
-  - a wrapper (`gibbs_cuda`, `chol_inv_cuda`, `quadform_diag_cuda`) that
-    launches the kernel for a CUDA tensor and counts the launch in
-    `LAUNCHES`; given a CPU tensor it returns the plain version instead.
-    For a CUDA tensor it launches or raises: there is no fallback;
+  - a wrapper (`gibbs_cuda`, `chol_inv_cuda`, `quadform_diag_cuda`,
+    `quadform_diag_dw_cuda`, `quadform_diag_da_cuda`) that launches the
+    kernel for a CUDA tensor and counts the launch in `LAUNCHES`; given a
+    CPU tensor it returns the plain version instead.  For a CUDA tensor it
+    launches or raises: there is no fallback;
   - a plain PyTorch version (`gibbs_plain`, `chol_inv_plain`,
-    `quadform_diag_plain`) with the same math.  The CPU tests run it, and
+    `quadform_diag_plain`, `quadform_diag_dw_plain`,
+    `quadform_diag_da_plain`) with the same math.  The CPU tests run it, and
     `chip_smoke.py` holds each kernel against it on the card.
 
 Sources live in `../csrc/*.cu`.  Each is compiled on first use with `nvcc`
@@ -43,10 +48,14 @@ __all__ = [
     "cholesky_nan",
     "quadform_diag_cuda",
     "quadform_diag_plain",
+    "quadform_diag_dw_cuda",
+    "quadform_diag_dw_plain",
+    "quadform_diag_da_cuda",
+    "quadform_diag_da_plain",
     "max_m",
 ]
 
-KERNELS = ("gibbs", "chol_inv", "quadform_diag")
+KERNELS = ("gibbs", "chol_inv", "quadform_diag", "quadform_diag_dw", "quadform_diag_da")
 
 # Launches of each kernel since the last `reset_launches()`.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -65,6 +74,10 @@ _ARGTYPES = {
     "chol_inv": [_P, _P, _P, _I, _I, _P],
     # A, W, V, s, g, m, n, stream
     "quadform_diag": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # A, W, vbar, dW, s, g, m, n, stream
+    "quadform_diag_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # A, W, vbar, partial, dA, s, g, m, n, chunks, stream
+    "quadform_diag_da": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _MAX_M: Dict[tuple, int] = {}
@@ -131,7 +144,7 @@ def _library(name: str) -> ctypes.CDLL:
 
 
 def max_m(name: str, device=None) -> int:
-    """Largest M that kernel `name` ("chol_inv" or "quadform_diag") takes on
+    """Largest M that kernel `name` (any of `KERNELS` but "gibbs") takes on
     `device`: its block keeps M x M matrices in shared memory, and the
     layout (`smem_bytes` in its source) meets the card's opt-in limit."""
     device = torch.device("cuda" if device is None else device)
@@ -276,6 +289,35 @@ def quadform_diag_plain(A, W):
     return torch.sum(C * C, dim=-1)
 
 
+def _quadform_operands(name, A, W, vbar=None):
+    """Check and batch the operands of the three quadform kernels: A (M, N)
+    with W (G, M, M) and vbar (G, N), or the same with a leading S.  Returns
+    contiguous (S, ...) operands, (s, g, m, n), whether the input was
+    batched and the device."""
+    batched = A.ndim == 3
+    if A.ndim not in (2, 3) or W.ndim != A.ndim + 1:
+        raise ValueError(
+            f"{name}: expected A (S, M, N) with W (S, G, M, M), or A (M, N) "
+            f"with W (G, M, M); got {tuple(A.shape)} and {tuple(W.shape)}"
+        )
+    Ab = A if batched else A[None]
+    Wb = W if batched else W[None]
+    s, m, n = Ab.shape
+    g = Wb.shape[1]
+    if Wb.shape != (s, g, m, m):
+        raise ValueError(f"{name}: W {tuple(W.shape)} does not match A {tuple(A.shape)}")
+    ops = [Ab.contiguous(), Wb.contiguous()]
+    if vbar is not None:
+        vb = vbar if batched else vbar[None]
+        if vb.shape != (s, g, n):
+            raise ValueError(f"{name}: vbar {tuple(vbar.shape)} does not match V {(s, g, n)}")
+        ops.append(vb.contiguous())
+    device = _check_cuda_f32(name, *ops)
+    if m > max_m(name, device) or s > 65535:
+        raise ValueError(f"{name}: M={m} (max {max_m(name, device)}) or S={s} too large")
+    return ops, (s, g, m, n), batched, device
+
+
 def quadform_diag_cuda(A, W):
     """`quadform_diag_plain` through `csrc/quadform_diag.cu` for CUDA float32
     tensors (M <= max_m("quadform_diag")), without the (G, N, M)
@@ -287,25 +329,90 @@ def quadform_diag_cuda(A, W):
     """
     if not A.is_cuda:
         return quadform_diag_plain(A, W)
-    batched = A.ndim == 3
-    if A.ndim not in (2, 3) or W.ndim != A.ndim + 1:
-        raise ValueError(
-            f"quadform_diag: expected A (S, M, N) with W (S, G, M, M), or A (M, N) "
-            f"with W (G, M, M); got {tuple(A.shape)} and {tuple(W.shape)}"
-        )
-    Ab = A if batched else A[None]
-    Wb = W if batched else W[None]
-    s, m, n = Ab.shape
-    g = Wb.shape[1]
-    if Wb.shape != (s, g, m, m):
-        raise ValueError(f"quadform_diag: W {tuple(W.shape)} does not match A {tuple(A.shape)}")
-    Ab, Wb = Ab.contiguous(), Wb.contiguous()
-    device = _check_cuda_f32("quadform_diag", Ab, Wb)
-    if m > max_m("quadform_diag", device) or s > 65535:
-        raise ValueError(
-            f"quadform_diag: M={m} (max {max_m('quadform_diag', device)}) or S={s} too large"
-        )
+    (Ab, Wb), (s, g, m, n), batched, device = _quadform_operands("quadform_diag", A, W)
     V = torch.empty((s, g, n), dtype=torch.float32, device=device)
     if V.numel():
         _launch("quadform_diag", device, Ab.data_ptr(), Wb.data_ptr(), V.data_ptr(), s, g, m, n)
     return V if batched else V[0]
+
+
+# ---------------------------------------------------------------------------
+# Backward of the variance quadratic form
+# ---------------------------------------------------------------------------
+#
+# With C_g = A^T W_g and E_g[n, k] = 2 vbar[g, n] C_g[n, k], the VJP of
+# V[g, n] = sum_k C_g[n, k]^2 is  dW_g = A E_g  and  dA = sum_g W_g E_g^T.
+
+
+def quadform_diag_dw_plain(A, W, vbar):
+    """dW of `quadform_diag_plain` for the cotangent vbar, in plain PyTorch:
+    the lower triangle of A E_g, zero above it (what reaches a parameter
+    when W is lower-triangular; see `quadform_diag_dw_cuda`).  A (M, N) or
+    (S, M, N); W (G, M, M) or (S, G, M, M); vbar (G, N) or (S, G, N).
+    Builds the (..., G, N, M) intermediates."""
+    C = torch.einsum("...mn,...gmk->...gnk", A, W)
+    E = 2.0 * vbar[..., None] * C
+    return torch.einsum("...mn,...gnk->...gmk", A, E).tril()
+
+
+def quadform_diag_da_plain(A, W, vbar):
+    """dA of `quadform_diag_plain` for the cotangent vbar, in plain PyTorch:
+    sum_g W_g E_g^T.  Shapes as `quadform_diag_dw_plain`."""
+    C = torch.einsum("...mn,...gmk->...gnk", A, W)
+    E = 2.0 * vbar[..., None] * C
+    return torch.einsum("...gmk,...gnk->...mn", W, E)
+
+
+def quadform_diag_dw_cuda(A, W, vbar):
+    """`quadform_diag_dw_plain` through `csrc/quadform_diag_dw.cu` for CUDA
+    float32 tensors (M <= max_m("quadform_diag_dw")), recomputing C tile by
+    tile instead of holding the (G, N, M) intermediate;
+    `quadform_diag_dw_plain` for CPU tensors.
+
+    W must be lower-triangular, as it is on the path (W = Lp^-1 @
+    tril(sqrt)).  Only dW's lower triangle is computed and zeros are written
+    above it: the strictly-upper part reaches no parameter, since the
+    matmul's backward turns it into strictly-upper cotangents of Lp^-1 and
+    of tril(sqrt), which the Cholesky-inverse backward and the tril masks
+    drop.
+    """
+    if not A.is_cuda:
+        return quadform_diag_dw_plain(A, W, vbar)
+    (Ab, Wb, vb), (s, g, m, n), batched, device = _quadform_operands(
+        "quadform_diag_dw", A, W, vbar
+    )
+    dW = torch.empty((s, g, m, m), dtype=torch.float32, device=device)
+    if dW.numel():
+        _launch("quadform_diag_dw", device, Ab.data_ptr(), Wb.data_ptr(), vb.data_ptr(),
+                dW.data_ptr(), s, g, m, n)
+    return dW if batched else dW[0]
+
+
+def _da_chunks(s: int, g: int, n: int, device) -> int:
+    """Group chunks of the dA kernel: enough (N tile, chunk) blocks for two
+    per streaming multiprocessor, at most one chunk per group."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks = s * -(-n // 64)  # the kernel's N tile is 64 columns
+    return max(1, min(g, -(-2 * sms // blocks)))
+
+
+def quadform_diag_da_cuda(A, W, vbar):
+    """`quadform_diag_da_plain` through `csrc/quadform_diag_da.cu` for CUDA
+    float32 tensors (M <= max_m("quadform_diag_da")): partial sums over
+    chunks of groups, then a fixed-order reduction of the chunks (both in
+    the kernel's source, deterministic); `quadform_diag_da_plain` for CPU
+    tensors.  W must be lower-triangular: only that triangle is read."""
+    if not A.is_cuda:
+        return quadform_diag_da_plain(A, W, vbar)
+    (Ab, Wb, vb), (s, g, m, n), batched, device = _quadform_operands(
+        "quadform_diag_da", A, W, vbar
+    )
+    if g == 0 or m == 0 or n == 0:
+        dA = torch.zeros((s, m, n), dtype=torch.float32, device=device)
+        return dA if batched else dA[0]
+    chunks = _da_chunks(s, g, n, device)
+    partial = torch.empty((s, chunks, m, n), dtype=torch.float32, device=device)
+    dA = torch.empty((s, m, n), dtype=torch.float32, device=device)
+    _launch("quadform_diag_da", device, Ab.data_ptr(), Wb.data_ptr(), vb.data_ptr(),
+            partial.data_ptr(), dA.data_ptr(), s, g, m, n, chunks)
+    return dA if batched else dA[0]

@@ -3,7 +3,8 @@
 Same formulas as the JAX package's `ops/kernels.py:33-119` (reference
 `create_RBF` / `create_Gibbs`, code/utils.py:75-103).  `gibbs` goes through
 the hand-written Gibbs kernel (`ops.cuda_kernels.gibbs_cuda`) for CUDA
-tensors.
+tensors, and its backward is the closed form of the JAX package's
+`_gibbs_bwd` (pallas_kernels.py:121-137), there in plain jnp as here.
 """
 
 from __future__ import annotations
@@ -50,6 +51,51 @@ def rbf(x1, x2, scale2=1.0, length_scale=1.0):
     return scale2 * torch.exp(-0.5 * r2)
 
 
+class _Gibbs(torch.autograd.Function):
+    """The Gibbs gram by the kernel; the backward in closed form, with
+    A = l1^2 + l2^2 and d^2 = sq_dist(x1, x2) (any input dimension):
+
+      dk/dl1 = k (0.5 / l1 - l1 / A + 2 l1 d^2 / A^2)   (and l2 alike)
+      dk/dx1 = k (-2 / A) (x1 - x2),   dk/dx2 = -dk/dx1,   dk/ds = k / s
+
+    Lengthscale gradients are summed back to each lengthscale's shape (a
+    side without the draw dimension is shared by the draws); an input that
+    needs no gradient (x and Z are data) gets None.  A tensor passed as
+    both sides gets the sum of both contributions from autograd."""
+
+    @staticmethod
+    def forward(ctx, x1, x2, ell1, ell2, scale2):
+        K = cuda_kernels.gibbs_cuda(x1, x2, ell1, ell2, scale2)
+        ctx.scale2 = scale2
+        ctx.save_for_backward(x1, x2, ell1, ell2, K)
+        return K
+
+    @staticmethod
+    def backward(ctx, g):
+        x1, x2, ell1, ell2, K = ctx.saved_tensors
+        need_x1, need_x2, need_l1, need_l2, need_s = ctx.needs_input_grad
+        gK = g * K
+        a = ell1[..., :, None]
+        b = ell2[..., None, :]
+        invA = 1.0 / (a * a + b * b)
+        d2 = sq_dist(x1, x2)
+        d_x1 = d_x2 = d_l1 = d_l2 = d_s = None
+        if need_l1:
+            d_l1 = torch.sum(gK * (0.5 / a - a * invA + 2.0 * a * d2 * invA * invA), dim=-1)
+            d_l1 = d_l1.sum_to_size(ell1.shape)
+        if need_l2:
+            d_l2 = torch.sum(gK * (0.5 / b - b * invA + 2.0 * b * d2 * invA * invA), dim=-2)
+            d_l2 = d_l2.sum_to_size(ell2.shape)
+        if need_x1 or need_x2:
+            c = (gK * (-2.0 * invA)).sum_to_size(d2.shape)  # the inputs are shared by draws
+            p1, p2 = _as_points(x1), _as_points(x2)
+            d_x1 = (c.sum(1)[:, None] * p1 - c @ p2).reshape(x1.shape)
+            d_x2 = (c.sum(0)[:, None] * p2 - c.T @ p1).reshape(x2.shape)
+        if need_s:
+            d_s = torch.sum(gK) / ctx.scale2
+        return d_x1, d_x2, d_l1, d_l2, d_s
+
+
 def gibbs(x1, x2, ell1, ell2, scale2=1.0):
     """Gibbs nonstationary kernel with input-dependent lengthscale,
 
@@ -58,5 +104,6 @@ def gibbs(x1, x2, ell1, ell2, scale2=1.0):
 
     ell1 (N1,) or (S, N1) and ell2 (N2,) or (S, N2): a leading draw
     dimension S on either gives (S, N1, N2), one gram per draw sharing x.
+    Differentiable in every argument (see `_Gibbs`).
     """
-    return cuda_kernels.gibbs_cuda(x1, x2, ell1, ell2, scale2)
+    return _Gibbs.apply(x1, x2, ell1, ell2, scale2)

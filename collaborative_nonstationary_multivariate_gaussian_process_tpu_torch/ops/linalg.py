@@ -1,9 +1,12 @@
-"""Linear-algebra primitives of the serving path.
+"""Linear-algebra primitives of the training and serving paths.
 
-The serving subset of the JAX package's `ops/linalg.py`: masks and
+The main-path subset of the JAX package's `ops/linalg.py`: masks and
 regularized factors, reparameterized sampling from explicit standard-normal
-tensors, sparse-GP conditioning, the fused Cholesky + triangular inverse
-(forward only) and the whitened marginal moments.  Every function takes an
+tensors, sparse-GP conditioning, the fused Cholesky + triangular inverse and
+the whitened forward substitution (each a `torch.autograd.Function` with the
+JAX package's matmul-only backward), the whitened marginal moments (whose
+quadratic form is a `torch.autograd.Function` over the forward and backward
+quadform kernels) and the two Gaussian KLs.  Every function takes an
 optional leading draw dimension S where the JAX package vmaps over draws.
 """
 
@@ -21,6 +24,7 @@ __all__ = [
     "tril_mask",
     "tril_regularized",
     "regularized_diag",
+    "chol_with_jitter",
     "psd_solve",
     "conditional_projection",
     "mgp_mean",
@@ -30,6 +34,8 @@ __all__ = [
     "chol_tri_inv_robust",
     "tri_solve_white",
     "mgp_mean_var_white",
+    "kl_gaussian_white",
+    "kl_gaussian_ref_compat",
 ]
 
 
@@ -61,11 +67,16 @@ def regularized_diag(X, jitter=DSVI_JITTER):
     return torch.sqrt(d * d + jitter)
 
 
+def chol_with_jitter(K, jitter=DSVI_JITTER):
+    """Lower Cholesky factor of K + jitter I.  A factor that fails gives NaN,
+    as `jnp.linalg.cholesky` does, instead of an error."""
+    return cholesky_nan(K + jitter * _eye_like(K))[0]
+
+
 def psd_solve(K, B, jitter=DSVI_JITTER):
-    """Solve (K + jitter I) X = B through a Cholesky factor.  A factor that
-    fails gives NaN, as `jnp.linalg.cholesky` does, instead of an error."""
-    L, _ = cholesky_nan(K + jitter * _eye_like(K))
-    return torch.cholesky_solve(B, L)
+    """Solve (K + jitter I) X = B through a Cholesky factor (NaN where the
+    factor fails, see `chol_with_jitter`)."""
+    return torch.cholesky_solve(B, chol_with_jitter(K, jitter))
 
 
 def conditional_projection(K12, K22, jitter=DSVI_JITTER):
@@ -97,11 +108,37 @@ def sample_full_cov(mean, scale_tril, z1, z2=None, jitter=DSVI_JITTER):
     return out + math.sqrt(jitter) * z2
 
 
+class _CholTriInv(torch.autograd.Function):
+    """(L, L^-1) by the fused kernel; the backward is the JAX package's
+    matmul-only `_chol_tri_inv_bwd` (ops/linalg.py:262-276): the inverse's
+    pullback -L^-T Linvbar L^-T joins Lbar, then the Cholesky pullback
+    K̄ = L^-T sym(Φ) L^-1 with Φ = tril(L^T L̄), diagonal halved."""
+
+    @staticmethod
+    def forward(ctx, K):
+        L, Linv = cuda_kernels.chol_inv_cuda(K)
+        ctx.save_for_backward(L, Linv)
+        return L, Linv
+
+    @staticmethod
+    def backward(ctx, Lbar, Linvbar):
+        L, Linv = ctx.saved_tensors
+        LinvT = Linv.transpose(-1, -2)
+        Lbar_total = Lbar - LinvT @ Linvbar @ LinvT
+        P = L.transpose(-1, -2) @ Lbar_total
+        m = L.shape[-1]
+        eye = torch.eye(m, dtype=L.dtype, device=L.device)
+        phi = P * (torch.ones_like(eye).tril() - 0.5 * eye)
+        sym = 0.5 * (phi + phi.transpose(-1, -2))
+        return LinvT @ sym @ Linv
+
+
 def chol_tri_inv(K):
     """(L, L^{-1}) of SPD K (..., M, M), through the fused kernel
-    (`cuda_kernels.chol_inv_cuda`).  Forward only.  A member that is not
-    numerically positive-definite gets NaN factors."""
-    return cuda_kernels.chol_inv_cuda(K)
+    (`cuda_kernels.chol_inv_cuda`), differentiable with the matmul-only
+    backward.  A member that is not numerically positive-definite gets NaN
+    factors (and NaN gradients, which the training step zeroes)."""
+    return _CholTriInv.apply(K)
 
 
 def chol_tri_inv_robust(Ks, jitter, boost=100.0):
@@ -116,13 +153,33 @@ def chol_tri_inv_robust(Ks, jitter, boost=100.0):
     return torch.where(bad, L2, L), torch.where(bad, Linv2, Linv)
 
 
+class _TriSolveWhite(torch.autograd.Function):
+    """A = L^-1 B by forward substitution; the backward is the JAX package's
+    `_tsw_bwd` (ops/linalg.py:324-338): B̄ = L^-T Ā and L̄ = tril(-B̄ A^T),
+    both matmuls against the given L^-1, which itself gets no cotangent."""
+
+    @staticmethod
+    def forward(ctx, L, Linv, B):
+        A = torch.linalg.solve_triangular(L, B, upper=False)
+        ctx.save_for_backward(Linv, A)
+        return A
+
+    @staticmethod
+    def backward(ctx, Abar):
+        Linv, A = ctx.saved_tensors
+        Bbar = Linv.transpose(-1, -2) @ Abar
+        Lbar = None
+        if ctx.needs_input_grad[0]:
+            Lbar = torch.tril(-Bbar @ A.transpose(-1, -2))  # L is triangular
+        return Lbar, None, Bbar  # None: the value does not depend on Linv
+
+
 def tri_solve_white(L, Linv, B):
     """A = L^{-1} B by forward substitution (backward-stable; an explicit
     inverse multiply loses accuracy in the ill-conditioned directions).
-    `Linv` is unused in the forward; the JAX signature carries it for the
-    matmul-only backward.  L (..., M, M); B (..., M, N)."""
-    del Linv
-    return torch.linalg.solve_triangular(L, B, upper=False)
+    `Linv` = L^{-1} serves the matmul-only backward only.  L (..., M, M);
+    B (..., M, N), with the same leading dimensions."""
+    return _TriSolveWhite.apply(L, Linv, B)
 
 
 def mgp_mean_var_white(A, Lp_inv, d11, mu, scale_tril):
@@ -144,7 +201,72 @@ def mgp_mean_var_white(A, Lp_inv, d11, mu, scale_tril):
     return mean, base[..., None, :] + _quadform_diag(A, W), W
 
 
+class _QuadformDiag(torch.autograd.Function):
+    """V = sum_k (A^T W_g)^2 by the forward quadform kernel; the backward is
+    the two backward kernels (dA, and dW's lower triangle).  Saves A and W,
+    never C: the kernels recompute C tile by tile, as the JAX package's
+    `_qf_bwd_rule` (pallas_kernels.py:636-684) does, so the (G, N, M)
+    intermediate is never held."""
+
+    @staticmethod
+    def forward(ctx, A, W):
+        ctx.save_for_backward(A, W)
+        return cuda_kernels.quadform_diag_cuda(A, W)
+
+    @staticmethod
+    def backward(ctx, vbar):
+        A, W = ctx.saved_tensors
+        vbar = vbar.contiguous()  # it may arrive expanded
+        dA = dW = None
+        if ctx.needs_input_grad[0]:
+            dA = cuda_kernels.quadform_diag_da_cuda(A, W, vbar)
+        if ctx.needs_input_grad[1]:
+            dW = cuda_kernels.quadform_diag_dw_cuda(A, W, vbar)
+        return dA, dW
+
+
 def _quadform_diag(A, W):
     """sum_k (einsum("...mn,...gmk->...gnk", A, W))^2 -> (..., G, N).  W is
-    lower-triangular (Lp_inv @ scale_tril), which the kernel relies on."""
-    return cuda_kernels.quadform_diag_cuda(A, W)
+    lower-triangular (Lp_inv @ scale_tril), which the kernels rely on; the
+    gradient of W is its lower triangle (see `quadform_diag_dw_cuda`)."""
+    return _QuadformDiag.apply(A, W)
+
+
+def kl_gaussian_white(mu_q, dq_reg, W, logdet_p, Lp_inv):
+    """KL( N(mu_q, L̃ L̃^T) || N(0, K_p + jI) ) from whitened pieces, exact
+    for the regularized factor family (JAX `kl_gaussian_white`,
+    ops/linalg.py:493-509):
+
+      KL = (logdet_p - logdet_q) + 0.5 (||W||_F^2 + ||Lp^-1 mu_q||^2 - M)
+
+    `dq_reg` is the regularized factor diagonal (`regularized_diag`), W =
+    Lp^-1 L̃ and `logdet_p` = sum log diag Lp.  Lp_inv and W may carry a
+    leading draw dimension; `logdet_p` broadcasts against the result.
+    """
+    m = mu_q.shape[-1]
+    logdet_q = torch.sum(torch.log(torch.abs(dq_reg)), dim=-1)
+    trace = torch.sum(W * W, dim=(-2, -1))
+    sol = torch.matmul(mu_q, Lp_inv.transpose(-1, -2))
+    maha = torch.sum(sol * sol, dim=-1)
+    return (logdet_p - logdet_q) + 0.5 * (trace + maha - m)
+
+
+def kl_gaussian_ref_compat(mu_q, scale_tril_q, Lp_diag, logdet_p, Lp_inv, jitter=DSVI_JITTER):
+    """The reference's KL_Gaussian as it computes, quirk included (JAX
+    `kl_gaussian_ref_compat`, ops/linalg.py:426-455): its trace term reads
+    only the diagonal of the prior factor,
+
+      KL_ref = (logdet_p - logdet_q)
+               + 0.5 (sum_ij (Lq2_ij / diag(Lp)_i)^2 + ||Lp^-1 mu_q||^2 - M)
+
+    with Lq2 = chol(Lq Lq^T + jI).  `Lp_diag` (..., M) broadcasts against
+    Lq2's rows after a trailing axis is added."""
+    m = mu_q.shape[-1]
+    Sigma_q = scale_tril_q @ scale_tril_q.transpose(-1, -2)
+    Lq2 = chol_with_jitter(Sigma_q, jitter)
+    logdet_q = torch.sum(torch.log(torch.diagonal(Lq2, dim1=-2, dim2=-1)), dim=-1)
+    X = Lq2 / Lp_diag[..., :, None]
+    term2 = torch.sum(X * X, dim=(-2, -1))
+    sol = torch.matmul(mu_q, Lp_inv.transpose(-1, -2))
+    maha = torch.sum(sol * sol, dim=-1)
+    return (logdet_p - logdet_q) + 0.5 * (term2 + maha - m)

@@ -6,9 +6,13 @@ nor the JAX package, so they also run where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 """
 
+from contextlib import ExitStack
+from unittest import mock
+
 import pytest
 import torch
 
+from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import cnmgp
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops import (
     cuda_kernels as ck,
 )
@@ -111,3 +115,106 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     m = ck.max_m("quadform_diag") + 1
     with pytest.raises(ValueError):
         ck.quadform_diag_cuda(torch.ones(m, 3, device=dev), torch.ones(1, m, m, device=dev))
+
+
+def _qf_inputs(dev, S, M, N, G, seed):
+    g = _gen(dev, seed)
+    A = torch.randn(S, M, N, device=dev, generator=g)
+    W = torch.randn(S, G, M, M, device=dev, generator=g).tril()
+    vbar = torch.randn(S, G, N, device=dev, generator=g)
+    return A, W, vbar
+
+
+@pytest.mark.parametrize(
+    "S, M, N, G",
+    [(1, 1, 1, 1), (2, 13, 70, 5), (1, 100, 512, 40), (3, 24, 129, 2), (1, 9, 65, 33),
+     (1, "max", 65, 3)],
+)
+def test_quadform_backward_kernels_match_plain(dev, S, M, N, G):
+    """dW (lower triangle, zeros above) and dA against the plain versions,
+    ragged N tiles and the largest M included; sums of M products of N
+    terms, in another order, so 1e-4 of max."""
+    if M == "max":
+        M = min(ck.max_m("quadform_diag_dw"), ck.max_m("quadform_diag_da"))
+    A, W, vbar = _qf_inputs(dev, S, M, N, G, M * N + G)
+    before = dict(ck.LAUNCHES)
+    dW = ck.quadform_diag_dw_cuda(A, W, vbar)
+    dA = ck.quadform_diag_da_cuda(A, W, vbar)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["quadform_diag_dw"] == before["quadform_diag_dw"] + 1
+    assert ck.LAUNCHES["quadform_diag_da"] == before["quadform_diag_da"] + 1
+    assert _close(dW, ck.quadform_diag_dw_plain(A, W, vbar), 1e-4)
+    assert torch.equal(dW, dW.tril())
+    assert _close(dA, ck.quadform_diag_da_plain(A, W, vbar), 1e-4)
+    dW0 = ck.quadform_diag_dw_cuda(A[0], W[0], vbar[0])  # no draw dimension
+    dA0 = ck.quadform_diag_da_cuda(A[0], W[0], vbar[0])
+    assert dW0.shape == (G, M, M) and dA0.shape == (M, N)
+    assert torch.equal(dW0, dW[0]) and torch.equal(dA0, dA[0])  # deterministic
+
+
+def test_backward_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    A, W, vbar = _qf_inputs(dev, 1, 6, 10, 2, 0)
+    for fn in (ck.quadform_diag_dw_cuda, ck.quadform_diag_da_cuda):
+        with pytest.raises(TypeError):
+            fn(A.double(), W.double(), vbar.double())
+        with pytest.raises(ValueError):
+            fn(A, W, vbar[..., :-1])  # vbar does not match V
+        with pytest.raises(ValueError):
+            fn(A, W[..., :-1, :-1], vbar)  # W does not match A
+    for name, fn in (("quadform_diag_dw", ck.quadform_diag_dw_cuda),
+                     ("quadform_diag_da", ck.quadform_diag_da_cuda)):
+        m = ck.max_m(name) + 1
+        with pytest.raises(ValueError):
+            fn(torch.ones(m, 3, device=dev), torch.ones(1, m, m, device=dev),
+               torch.ones(1, 3, device=dev))
+
+
+def _plain_versions():
+    stack = ExitStack()
+    for name in ck.KERNELS:
+        stack.enter_context(mock.patch.object(ck, f"{name}_cuda", getattr(ck, f"{name}_plain")))
+    return stack
+
+
+def test_negative_selbo_backward_on_the_card_matches_plain(dev):
+    """loss.backward() through all five kernels against the plain versions
+    on the same noise and batch.  Both float32 runs are held against a
+    float64 run of the plain versions: the kernels may be at most 3x as far
+    off as the plain versions, + 1e-5 of max (f32 through the prior
+    factorization)."""
+    D, M, B = 3, 12, 40
+    g = _gen(dev, 0)
+    params = cnmgp.init_params(g, D, M, device=dev)
+    params = params._replace(
+        mu_v=torch.full((M,), -1.5, device=dev),
+        length_scales_tildeell_log=torch.tensor(-1.5, device=dev),
+        length_scales_L0_log=torch.tensor(-1.2, device=dev),
+        length_scales_L1_log=torch.tensor(-1.0, device=dev),
+    )
+    Z = torch.linspace(0.0, 1.0, M, device=dev)
+    x = torch.rand(B, device=dev, generator=g)
+    idx = torch.randint(0, D, (B,), device=dev, generator=g)
+    y = torch.sin(6 * x)
+    w = torch.ones(B, device=dev)
+    noise = cnmgp.draw_train_noise(g, 1, M, B, D)
+
+    def grads(dtype):
+        p = cnmgp.CNMGPParams(*(t.detach().to(dtype).clone().requires_grad_(True) for t in params))
+        nz = cnmgp.CNMGPNoise(*(None if z is None else z.to(dtype) for z in noise))
+        loss = cnmgp.negative_selbo(p, Z.to(dtype), x.to(dtype), y.to(dtype), idx, w.to(dtype),
+                                    1000.0, nz)
+        loss.backward()
+        return [t.grad for t in p]
+
+    ck.reset_launches()
+    g_kernel = grads(torch.float32)
+    torch.cuda.synchronize()
+    assert all(ck.LAUNCHES[k] > 0 for k in ck.KERNELS), ck.LAUNCHES
+    with _plain_versions():
+        g_plain = grads(torch.float32)
+        g_64 = grads(torch.float64)
+    for name, gk, gp, g64 in zip(cnmgp.CNMGPParams._fields, g_kernel, g_plain, g_64):
+        scale = float(g64.abs().max())
+        err_k = float((gk.double() - g64).abs().max())
+        err_p = float((gp.double() - g64).abs().max())
+        assert err_k <= 3 * err_p + 1e-5 * scale, (name, err_k, err_p, scale)
