@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of CNMGP (DSVI training and posterior
-prediction) on one CUDA card.
+"""Drive the PyTorch/CUDA port of CNMGP (DSVI training, posterior
+prediction and fully-Bayesian NUTS/HMC) on one CUDA card.
 
     python3 chip_smoke.py
 
-In order: builds the five hand-written kernels from
+In order: builds the eight hand-written kernels from
 `collaborative_nonstationary_multivariate_gaussian_process_tpu_torch/csrc`
 with nvcc; holds each kernel against its plain PyTorch version on the card
 at the shapes of the path (the serving forwards, and the two backward
@@ -22,8 +22,25 @@ times training steps at ECoG and PM2.5-sub width (D=6, M=100, B=2000) with
 the kernels and with the plain versions, and profiles one step; fits
 `sim_illustration_low_freq` by `inference()` and holds the fit to the
 assertions of `tests/test_dsvi_e2e.py`; times kernels, plain versions, the
-library yardstick and the requests with CUDA events.  The second-to-last
-line is a JSON object with one entry per kernel; the last line is
+library yardstick and the requests with CUDA events.  Then the
+fully-Bayesian path: holds the RBF, Cholesky, Kronecker-matvec and
+Cholesky-inverse kernels against float64 runs of their plain versions at
+the path's shapes (the Cholesky-inverse at M = 200 and 1024, NaN on a
+non-PD member; RBF and Cholesky also on the path's own whitening grams);
+runs `scripts/run_mcmc_sim.py`'s default study through the port
+(sim_mnts M=2, N=100; empirical init; the whitened SVC density, dim 401;
+NUTS, 4 chains, max depth 8, diagonal mass; its 400 warmup and 400 samples
+cut to 100 and 100 to fit the time limit, and the chains started at the MAP
+that `run_map` finds from the empirical init, see FB_WARMUP), holds
+the log-posterior and its gradient at the empirical init and at that start
+against float64, checks the
+launches, R-hat, the recovery of the lengthscale and correlation processes,
+and prints samples/s, ESS/s and the host reads; profiles one leapfrog; then
+the whitened SNMGP at N=1024 (MN = 2048, the Kronecker eigen route through
+the matvec kernel): value and gradient against float64, a short HMC run,
+and `mvn_logpdf_kron` timed on both routes at MN = 1024 and 2048.  The
+second-to-last line is a JSON object with one entry per kernel; the last
+line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, when no CUDA card is present, the port
 package is not beside this script, or any check fails.
@@ -43,6 +60,30 @@ from unittest import mock
 import numpy as np
 import torch
 
+# The kernels a DSVI training step launches (the rest serve the other paths).
+TRAIN_KERNELS = ("gibbs", "chol_inv", "quadform_diag", "quadform_diag_dw", "quadform_diag_da")
+# scripts/run_mcmc_sim.py's default run: N, chains, max depth, and its
+# hyperparameters (:115-118) as they are; its 400 warmup and 400 samples cut
+# to FB_WARMUP and FB_SAMPLES.  Every transition of that run saturates the
+# depth (255 leapfrogs, 4 chains in lockstep), and a leapfrog pass of the
+# port's eager loop costs ~8.5 ms of host time on the H100 (PERF.md), so the
+# 880 transitions of the full run would take ~30 minutes, more than this
+# script's time limit; the width is not cut.  The chains start at the MAP
+# that `run_map` finds from the empirical init (MAP_LR, MAP_STEPS), not at
+# the init itself (log-posterior about -31,000, the mode about +90): from
+# there one chain of four stayed in a region of lower density through 100
+# and through 150 warmup transitions (R-hat max 2.35 and 2.49), where the
+# JAX package's own run of the same study cut to 100 + 100 converged on
+# the CPU (R-hat max 1.011); `svc_init_study.py` counts such chains.
+FB_N, FB_CHAINS, FB_DEPTH = 100, 4, 8
+FB_WARMUP, FB_SAMPLES = 100, 100
+FB_FULL = (400, 400)
+MAP_LR, MAP_STEPS = 0.2, 2000
+FB_HYPERS = dict(mu_tilde_l=-3.0, alpha_tilde_l=3.0, beta_tilde_l=0.4, mu_L=0.0, alpha_L=5.0,
+                 beta_L=1.0, a=1.0, b=1.0)
+# the SNMGP check of the Kronecker eigen route: MN = 2 x 1024 > KRON_DENSE_MAX_DIM
+SNMGP_N = 1024
+SNMGP_HYPERS = dict(alpha_tilde_l=3.0, beta_tilde_l=0.4, alpha_tilde_sigma=1.0, beta_tilde_sigma=0.4)
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and non-tensor FP32.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
@@ -191,6 +232,21 @@ def plain_versions(ck):
     with ExitStack() as stack:
         for name in ck.KERNELS:
             stack.enter_context(mock.patch.object(ck, f"{name}_cuda", getattr(ck, f"{name}_plain")))
+        yield
+
+
+@contextmanager
+def recording(ck, names, calls):
+    """Route each named kernel wrapper through a recorder that appends a
+    detached copy of its arguments to calls[name], then calls the wrapper."""
+    with ExitStack() as stack:
+        for name in names:
+            def rec(*args, _real=getattr(ck, f"{name}_cuda"), _name=name):
+                calls.setdefault(_name, []).append(
+                    tuple(a.detach().clone() if isinstance(a, torch.Tensor) else a for a in args))
+                return _real(*args)
+
+            stack.enter_context(mock.patch.object(ck, f"{name}_cuda", rec))
         yield
 
 
@@ -350,7 +406,7 @@ def ecog_gradients(ck, tc, x, y, idx, Z, gen):
     with plain_versions(ck):
         runs_p = [grads(torch.float32, o) for o in orders]
         loss_64, g_64 = grads(torch.float64, orders[0])
-    check(all(launched[k] > 0 for k in ck.KERNELS),
+    check(all(launched[k] > 0 for k in TRAIN_KERNELS),
           f"ECoG gradient: three loss.backward() launched {launched}")
     print(f"ECoG gradient batch: loss kernels {runs_k[0][0]:.6e}, plain {runs_p[0][0]:.6e}, "
           f"float64 {loss_64:.6e}")
@@ -417,7 +473,7 @@ def training(ck, td, tc, tp, sim, dev, gen, smi):
     epoch_s = time.perf_counter() - t0
     launched = dict(ck.LAUNCHES)
     losses = np.asarray(res.loss_list)
-    check(all(launched[k] > 0 for k in ck.KERNELS) and bool(np.all(np.isfinite(losses))),
+    check(all(launched[k] > 0 for k in TRAIN_KERNELS) and bool(np.all(np.isfinite(losses))),
           f"ECoG epoch by inference() (D=78, N=62,400, M=100, B=512, {len(losses)} steps, "
           f"{epoch_s:.2f} s with set-up): finite losses {losses[0]:.4e} .. {losses[-1]:.4e}, "
           f"launches {launched}")
@@ -444,6 +500,406 @@ def training(ck, td, tc, tp, sim, dev, gen, smi):
               f"{pl[0]:.2f} / {pl[1]:.2f} steps/s ({smi})")
     illustration_fit(ck, td, tp, sim)
     return launched
+
+# ---------------------------------------------------------------------------
+# The fully-Bayesian path
+# ---------------------------------------------------------------------------
+
+
+def witnessed(name, got, plain, ref64, floor, shape):
+    """A f32 result of a kernel against float64 on the same input: at most
+    3x the plain f32 version's error (of max) + floor.  Returns max |kernel
+    - plain|."""
+    err_k, err_p = rel_to_max(got, ref64)[1], rel_to_max(plain, ref64)[1]
+    check(err_k <= 3 * err_p + floor and bool(torch.isfinite(got).all()),
+          f"{name} {shape} vs float64, of max: kernel {err_k:.3e}, plain {err_p:.3e}; "
+          f"tol 3x plain + {floor:g}")
+    return rel_to_max(got, plain)[0]
+
+
+def fb_kernel_checks(ck, gen, dev, svc_K):
+    """The four kernels of the fully-Bayesian path against float64 runs of
+    their plain versions at the path's shapes, NaN semantics of the two
+    factorizations, then timed.  `svc_K` is the (4, 200, 200) SVC
+    covariance of the NUTS phase's init.  Returns {name: (timing row, max
+    |kernel - plain|)}."""
+    out = {}
+    eye = lambda m: torch.eye(m, device=dev)  # noqa: E731
+    # RBF: the whitening grams of the SNMGP check, two (scale, lengthscale) pairs
+    N = SNMGP_N
+    x = torch.sort(torch.rand(N, device=dev, generator=gen)).values
+    s2 = torch.tensor([9.0, 1.0], device=dev)
+    ls = torch.tensor([0.4, 0.4], device=dev)
+    err = witnessed("rbf", ck.rbf_cuda(x, x, s2, ls), ck.rbf_plain(x, x, s2, ls),
+                    ck.rbf_plain(x.double(), x.double(), s2.double(), ls.double()), 1e-6,
+                    "(2, 1024, 1024)")
+    err = max(err, witnessed("rbf", ck.rbf_cuda(x[:FB_N], x[:FB_N], 4.0, 0.4),
+                             ck.rbf_plain(x[:FB_N], x[:FB_N], 4.0, 0.4),
+                             ck.rbf_plain(x[:FB_N].double(), x[:FB_N].double(), 4.0, 0.4), 1e-6,
+                             "(100, 100) scalar"))
+    n_el = 2 * N * N
+    out["rbf"] = ((lambda: ck.rbf_cuda(x, x, s2, ls), lambda: ck.rbf_plain(x, x, s2, ls), None, 5,
+                   bound_ms(4 * (2 * N + 4 + n_el), 5 * n_el)), err)
+
+    # Cholesky: the whitening factors, (2, 100, 100) and (2, 1024, 1024)
+    errs = []
+    for m in (FB_N, N):
+        K = ck.rbf_plain(x[:m], x[:m], s2, ls) + 4.8e-5 * s2[:, None, None] * eye(m)
+        L, Lp, L64 = ck.cholesky_cuda(K), ck.cholesky_plain(K), ck.cholesky_plain(K.double())
+        torch.cuda.synchronize()
+        errs.append(witnessed("cholesky", L, Lp, L64, 1e-6, f"(2, {m}, {m})"))
+        back = rel_to_max(L.double() @ L.double().mT, K.double())[1]
+        check(back <= m * EPS32, f"cholesky (2, {m}, {m}) |L L^T - K|/|K| {back:.3e}, tol M eps")
+    Kbad = K.clone()
+    Kbad[1, N // 3, N // 3] = -1.0
+    Lb = ck.cholesky_cuda(Kbad)
+    torch.cuda.synchronize()
+    lower = torch.ones(N, N, dtype=torch.bool, device=dev).tril()
+    check(bool(torch.isnan(Lb[1][lower]).all() and (Lb[1][~lower] == 0).all()
+               and torch.isfinite(Lb[0]).all()),
+          "cholesky: the non-PD member is NaN in its lower triangle, zero above; the other finite")
+    # bytes: K's lower triangle read, L written; m^3/3 flops a matrix
+    m = N
+    out["cholesky"] = ((lambda: ck.cholesky_cuda(K), lambda: ck.cholesky_plain(K),
+                        lambda: torch.linalg.cholesky_ex(K), 3,
+                        bound_ms(4 * 2 * (m * (m + 1) // 2 + m * m), 2 * m**3 / 3)), max(errs))
+
+    # (L, L^-1): the SVC covariance at M = 200, random SPD at 1024
+    A = torch.randn(4, N, N, device=dev, generator=gen)
+    K1024 = A @ A.mT / N + 0.05 * eye(N)
+    errs = []
+    for K in (svc_K, K1024):
+        shape = tuple(K.shape)
+        (L, Li), (Lp, Lip), (L64, Li64) = (ck.chol_inv_cuda(K), ck.chol_inv_plain(K),
+                                           ck.chol_inv_plain(K.double()))
+        torch.cuda.synchronize()
+        errs.append(witnessed("chol_inv L", L, Lp, L64, 1e-6, shape))
+        errs.append(witnessed("chol_inv L^-1", Li, Lip, Li64, 1e-6, shape))
+        mm = K.shape[-1]
+        back = rel_to_max(L.double() @ L.double().mT, K.double())[1]
+        check(back <= mm * EPS32, f"chol_inv {shape} |L L^T - K|/|K| {back:.3e}, tol M eps")
+    Kbad = svc_K.clone()
+    Kbad[2] -= 10.0 * float(svc_K[2].diagonal().max()) * eye(svc_K.shape[-1])
+    Lb, Lib = ck.chol_inv_cuda(Kbad)
+    Lr, Lir = ck.chol_inv_plain(Kbad)
+    torch.cuda.synchronize()
+    check(torch.equal(torch.isnan(Lb), torch.isnan(Lr)) and torch.equal(torch.isnan(Lib), torch.isnan(Lir))
+          and bool(torch.isnan(Lib[2]).all()) and bool(torch.isfinite(Lib[[0, 1, 3]]).all()),
+          "chol_inv at M=200: the non-PD member NaN as the plain version has it")
+    # bytes: K's lower triangle read, L and L^-1 written; m^3/3 flops each
+    # for the factor and the inverse
+    m, nb = svc_K.shape[-1], svc_K.shape[0]
+    out["chol_inv (4,200,200)"] = ((lambda: ck.chol_inv_cuda(svc_K),
+                                    lambda: ck.chol_inv_plain(svc_K), None, 5,
+                                    bound_ms(4 * nb * (m * (m + 1) // 2 + 2 * m * m),
+                                             nb * 2 * m**3 / 3)), max(errs))
+
+    # Kronecker matvec: the eigen route of the SNMGP check, 4 chains, MN = 2048
+    B = torch.randn(4, 2, 2, device=dev, generator=gen)
+    Kk = torch.randn(4, N, N, device=dev, generator=gen)
+    y = torch.randn(2 * N, device=dev, generator=gen)
+    err = witnessed("kron_mv", ck.kron_mv_cuda(B, Kk, y), ck.kron_mv_plain(B, Kk, y),
+                    ck.kron_mv_plain(B.double(), Kk.double(), y.double()), 1e-6, "(4, 1024) x (4, 2)")
+    Y = y.reshape(2, N).T
+    out["kron_mv"] = ((lambda: ck.kron_mv_cuda(B, Kk, y), lambda: ck.kron_mv_plain(B, Kk, y),
+                       lambda: Kk @ Y @ B.mT, 10,
+                       bound_ms(4 * (4 * N * N + 4 * 4 + 2 * N + 4 * 2 * N),
+                                4 * (2 * N * N * 2 + 2 * N * 2 * 2))), err)
+    return out
+
+
+def whitening_checks(ck, calls, what):
+    """The RBF and Cholesky kernels on the inputs the path's own whitening
+    factors gave them (recorded in `calls`: the prior grams with their
+    jitter), each held against a float64 run of its plain version on the
+    same f32 input, as `witnessed`; the factor also by its backward error."""
+    f64 = lambda args: tuple(a.double() if isinstance(a, torch.Tensor) else a for a in args)  # noqa: E731
+    for args in calls["rbf"]:
+        got = ck.rbf_cuda(*args)
+        witnessed(f"rbf, {what} whitening grams", got, ck.rbf_plain(*args),
+                  ck.rbf_plain(*f64(args)), 1e-6, tuple(got.shape))
+    for (K,) in calls["cholesky"]:
+        L = ck.cholesky_cuda(K)
+        torch.cuda.synchronize()
+        witnessed(f"cholesky, {what} whitening grams", L, ck.cholesky_plain(K),
+                  ck.cholesky_plain(K.double()), 1e-6, tuple(K.shape))
+        back = rel_to_max(L.double() @ L.double().mT, K.double())[1]
+        check(back <= K.shape[-1] * EPS32,
+              f"cholesky, {what} whitening grams {tuple(K.shape)}: |L L^T - K|/|K| {back:.3e}, "
+              f"tol M eps")
+
+
+def svc_problem():
+    """The data and empirical init of scripts/run_mcmc_sim.py's default run
+    (:99-111), through the port's copies, as NumPy arrays."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops.linalg import (
+        lvec_to_uvec,
+    )
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils.empirical import (
+        local_estimation,
+        smooth,
+    )
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils.sim import sim_mnts
+
+    N, M, T = FB_N, 2, 3
+    x, true_l, true_L_vecs, true_s2e, Y = sim_mnts(M=M, N=N, seed=0)
+    est = local_estimation(x, Y, window_size=max(N // 6, 10))
+    init_tilde_l = np.log(smooth(est["ls"], 10))
+    init_uL = lvec_to_uvec(torch.as_tensor(smooth(est["L_vecs"], 10)), M).numpy().reshape(-1)
+    return dict(x=x, Y=Y, init_tilde_l=init_tilde_l, init_uL=init_uL, true_l=true_l,
+                true_L_vecs=true_L_vecs, true_s2e=true_s2e, N=N, M=M, T=T)
+
+
+def svc_density(ld, prob, dev, dtype, chols=None):
+    """The whitened SVC log-posterior of run_mcmc_sim.py (:129-154) in
+    `dtype` on `dev`: (lp, chol_l, chol_L, x).  The whitening factors are
+    computed (rbf and cholesky), or `chols` cast to `dtype`: a comparison
+    across dtypes shares one pair, since the f32 and float64 factors of
+    these near-singular grams differ at O(1) (their jitters differ too)."""
+    h = FB_HYPERS
+    xt = torch.as_tensor(prob["x"], dtype=dtype, device=dev)
+    Yt = torch.as_tensor(prob["Y"], dtype=dtype, device=dev)
+    if chols is None:
+        chols = ld.svc_whiten_chols(xt, h["alpha_tilde_l"], h["beta_tilde_l"], h["alpha_L"],
+                                    h["beta_L"])
+    chol_l, chol_L = (c.to(dtype) for c in chols)
+
+    def lp(q):
+        return ld.svc_log_posterior_whitened(q, Yt, xt, chol_l, chol_L, mu_tilde_l=h["mu_tilde_l"],
+                                             mu_L=h["mu_L"], a=h["a"], b=h["b"])
+
+    return lp, chol_l, chol_L, xt
+
+
+def whitened_init(prob, chol_l, chol_L):
+    """eta of the empirical init under the whitening factors (run_mcmc_sim.py:135-147)."""
+    N, T, h = prob["N"], prob["T"], FB_HYPERS
+    cl, cL = chol_l.double().cpu(), chol_L.double().cpu()
+    eta_l = torch.linalg.solve_triangular(
+        cl, torch.as_tensor(prob["init_tilde_l"] - h["mu_tilde_l"])[:, None], upper=False)[:, 0]
+    eta_U = torch.linalg.solve_triangular(
+        cL, torch.as_tensor(prob["init_uL"].reshape(N, T) - h["mu_L"]), upper=False)
+    return np.concatenate([eta_l.numpy(), eta_U.numpy().reshape(-1), [np.log(prob["true_s2e"])]])
+
+
+def recovery(prob, samples, chol_l, chol_L):
+    """tilde_l and correlation RMSE and coverage against the truth, from
+    whitened draws (C, S, dim), as run_mcmc_sim.py:252-292 computes them."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils.posterior_analysis import (
+        lvecs_to_corr,
+        samples2quantiles,
+    )
+
+    N, M, T, h = prob["N"], prob["M"], prob["T"], FB_HYPERS
+    dim = samples.shape[-1]
+    flat = samples.reshape(-1, dim)
+    tl = h["mu_tilde_l"] + flat[:, :N] @ chol_l.double().cpu().numpy().T
+    U = h["mu_L"] + np.einsum("nk,skt->snt", chol_L.double().cpu().numpy(),
+                              flat[:, N:N + N * T].reshape(-1, N, T))
+    true_tl = np.log(prob["true_l"])
+    true_corr = lvecs_to_corr(prob["true_L_vecs"], N, M, constrained=True)[:, 0, 1]
+    tl_q = samples2quantiles(tl)
+    corr_q = samples2quantiles(lvecs_to_corr(U.reshape(-1, N * T), N, M)[:, :, 0, 1])
+    return dict(
+        rmse_tilde_l=float(np.sqrt(np.mean((tl_q[1] - true_tl) ** 2))),
+        rmse_corr=float(np.sqrt(np.mean((corr_q[1] - true_corr) ** 2))),
+        coverage_tilde_l=float(np.mean((true_tl > tl_q[0]) & (true_tl < tl_q[2]))),
+        coverage_corr=float(np.mean((true_corr > corr_q[0]) & (true_corr < corr_q[2]))),
+    )
+
+
+def fb_svc_nuts(ck, dev, smi):
+    """scripts/run_mcmc_sim.py's default study through the port on the card.
+    Returns (launches of the path, metrics, the (4, 200, 200) covariance at
+    the init for the kernel checks)."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer.hmc import (
+        value_and_grad,
+    )
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer.map import run_map
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer.nuts import run_nuts
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import (
+        logdensities as ld,
+    )
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.parallel.sharded_mcmc import (
+        effective_sample_size,
+        potential_scale_reduction,
+    )
+
+    prob = svc_problem()
+    h = FB_HYPERS
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    # ---- the main path: whitening factors, then NUTS (counts from 0)
+    print(f"SVC NUTS: run_mcmc_sim.py's {FB_FULL[0]} warmup and {FB_FULL[1]} samples cut to "
+          f"{FB_WARMUP} and {FB_SAMPLES}, the chains started at the MAP; N={FB_N}, {FB_CHAINS} "
+          f"chains, max depth {FB_DEPTH} as there", flush=True)
+    t0 = time.perf_counter()
+
+    def progress(phase, i):
+        if (i + 1) % 25 == 0:
+            print(f"SVC NUTS {phase} {i + 1}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    ck.reset_launches()
+    whiten_calls = {}
+    with recording(ck, ("rbf", "cholesky"), whiten_calls):
+        lp, chol_l, chol_L, xt = svc_density(ld, prob, dev, torch.float32)
+    init = whitened_init(prob, chol_l, chol_L)
+    dim = init.shape[0]
+    q_map, losses = run_map(lambda q: -lp(q), torch.as_tensor(init, dtype=torch.float32,
+                                                              device=dev)[None],
+                            num_steps=MAP_STEPS, learning_rate=MAP_LR)
+    lp_init, lp_map = -float(losses[0, 0]), -float(losses[-1, 0])
+    check(math.isfinite(lp_map) and lp_map > lp_init,
+          f"SVC MAP by run_map (Adam, lr {MAP_LR}, {MAP_STEPS} steps, "
+          f"{time.perf_counter() - t0:.1f} s): log-posterior {lp_init:.2f} at the empirical init, "
+          f"{lp_map:.2f} at the MAP")
+    q0 = q_map + 0.01 * torch.randn(FB_CHAINS, dim, device=dev, generator=gen)
+    samples, info = run_nuts(lp, q0, gen, num_warmup=FB_WARMUP, num_samples=FB_SAMPLES,
+                             max_depth=FB_DEPTH, progress=progress)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = dict(ck.LAUNCHES)
+    need = ("gibbs", "chol_inv", "rbf", "cholesky")  # rbf, cholesky: the whitening factors
+    check(all(launched[k] > 0 for k in need),
+          f"SVC NUTS (N={FB_N}, dim {dim}, {FB_CHAINS} chains) launched {launched}")
+    draws = samples.double().cpu().numpy()
+    check(bool(np.all(np.isfinite(draws))), f"SVC NUTS: all {draws.size} draw values finite")
+    rhat = potential_scale_reduction(samples.double().cpu()).numpy()
+    ess = effective_sample_size(samples.double().cpu()).numpy()
+    rec = recovery(prob, draws, chol_l, chol_L)
+    n_draws = FB_CHAINS * FB_SAMPLES
+    steps = info["num_steps"].double()
+    metrics = dict(
+        wall_s=wall, samples_per_s=n_draws / wall, ess_median=float(np.median(ess)),
+        ess_min=float(ess.min()), ess_per_s=float(np.median(ess)) / wall,
+        rhat_max=float(rhat.max()), rhat_median=float(np.median(rhat)),
+        mean_accept=float(info["accept_prob"].mean()),
+        leapfrogs_per_transition=float(steps.mean()), lockstep_passes=info["leapfrogs"],
+        ms_per_lockstep_pass=1e3 * wall / max(info["leapfrogs"], 1),
+        host_reads=info["host_reads"], divergent=float(info["diverging"].double().mean()),
+        step_size=[round(float(e), 5) for e in info["step_size"]],
+        lp_mean_per_chain=[round(float(v), 2) for v in info["log_prob"].mean(1)],
+        log_sigma2_err_mean_per_chain=[round(float(v), 3) for v in samples[:, :, -1].mean(1)],
+        **rec)
+    print("SVC NUTS " + json.dumps(metrics) + f" ({smi})")
+    check(metrics["rhat_max"] <= 1.1, f"SVC NUTS R-hat max {metrics['rhat_max']:.4f} <= 1.1")
+    check(rec["rmse_tilde_l"] <= 0.25 and rec["rmse_corr"] <= 0.15,
+          f"SVC NUTS recovery: tilde_l RMSE {rec['rmse_tilde_l']:.4f} <= 0.25, corr RMSE "
+          f"{rec['rmse_corr']:.4f} <= 0.15")
+
+    # ---- the whitening factors' kernels on their own grams
+    whitening_checks(ck, whiten_calls, "SVC")
+
+    # ---- lp and grad at the empirical init (as run_mcmc_sim.py:167-169
+    # spreads it over the chains) and at the MAP start: kernels, plain f32,
+    # plain float64, on the whitening factors of the run
+    q_emp = torch.as_tensor(init, dtype=torch.float32, device=dev)[None] + 0.01 * torch.randn(
+        FB_CHAINS, dim, device=dev, generator=torch.Generator(device=dev).manual_seed(3))
+    for where, q in (("the empirical init", q_emp), ("the MAP start", q0)):
+        res = {}
+        for tag in ("kernels", "plain", "float64"):
+            with plain_versions(ck) if tag != "kernels" else ExitStack():
+                dt = torch.float64 if tag == "float64" else torch.float32
+                lp_t = svc_density(ld, prob, dev, dt, chols=(chol_l, chol_L))[0]
+                res[tag] = value_and_grad(lp_t, q.to(dt))
+        torch.cuda.synchronize()
+        for i, what in enumerate(("log-posterior", "gradient")):
+            err_k = rel_to_max(res["kernels"][i], res["float64"][i])[1]
+            err_p = rel_to_max(res["plain"][i], res["float64"][i])[1]
+            check(err_k <= 3 * err_p + 1e-4,
+                  f"SVC whitened {what} at {where} (4 chains) vs float64, of max: kernels "
+                  f"{err_k:.3e}, plain {err_p:.3e}; tol 3x plain + 1e-4")
+
+    # ---- where a leapfrog's time goes
+    q = samples[:, -1].contiguous()
+    print(f"time of one value_and_grad of the SVC density (4 chains): "
+          f"{host_ms(lambda: value_and_grad(lp, q)):.3f} ms host clock, median of 20 ({smi})")
+    print("profile of one value_and_grad (a leapfrog's gradient), 4 chains:")
+    profile_breakdown(lambda: value_and_grad(lp, q))
+    with plain_versions(ck):
+        print(f"the same with the plain versions: {host_ms(lambda: value_and_grad(lp, q)):.3f} ms")
+    p = ld.svc_unwhiten(q0, xt, h["mu_tilde_l"], h["mu_L"], chol_l, chol_L, 2)
+    K, _ = ld.svc_covariance(p.tilde_l, p.uL_vecs, xt)
+    svc_K = K + torch.exp(p.tilde_sigma2_err)[:, None, None] * torch.eye(2 * FB_N, device=dev)
+    return launched, metrics, svc_K
+
+
+def fb_snmgp(ck, dev, smi):
+    """The whitened SNMGP at N=1024 (MN = 2048 > 1024: the eigen route
+    through the Kronecker-matvec kernel), 4 chains: value and gradient
+    against float64, a short HMC run, and `mvn_logpdf_kron` timed on both
+    routes.  Returns the launches of the path."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer.hmc import (
+        run_hmc,
+        value_and_grad,
+    )
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import (
+        logdensities as ld,
+    )
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops.distributions import (
+        mvn_logpdf_kron,
+    )
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils.sim import sim_mnts
+
+    N, M, C = SNMGP_N, 2, FB_CHAINS
+    x, _, _, _, Y = sim_mnts(M=M, N=N, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dim = 2 * N + 3 + 1
+    q0 = 0.1 * torch.randn(C, dim, device=dev, generator=gen)
+    q0[:, -1] = math.log(0.01)
+
+    def problem(dtype, chols):
+        xt = torch.as_tensor(x, dtype=dtype, device=dev)
+        Yt = torch.as_tensor(Y, dtype=dtype, device=dev)
+        chols = tuple(c.to(dtype) for c in chols)
+        return lambda q: ld.snmgp_log_posterior_whitened(q, Yt, xt, *chols, mu_tilde_l=-3.0)
+
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    whiten_calls = {}
+    with recording(ck, ("rbf", "cholesky"), whiten_calls):
+        chols = ld.snmgp_whiten_chols(torch.as_tensor(x, dtype=torch.float32, device=dev),
+                                      *SNMGP_HYPERS.values())
+    lp = problem(torch.float32, chols)
+    v, g = value_and_grad(lp, q0)
+    pos, info = run_hmc(lp, q0, gen, num_warmup=20, num_samples=20, num_steps=8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = dict(ck.LAUNCHES)
+    check(all(launched[k] > 0 for k in ("gibbs", "kron_mv", "rbf", "cholesky"))
+          and bool(torch.isfinite(pos).all()),
+          f"SNMGP eigen route (N={N}, MN={M * N}): value, gradient and HMC 20+20 in {wall:.2f} s, "
+          f"finite, launches {launched}; accept {float(info['accept_prob'].mean()):.3f}")
+    whitening_checks(ck, whiten_calls, "SNMGP")
+    with plain_versions(ck):
+        vp, gp = value_and_grad(problem(torch.float32, chols), q0)
+        v64, g64 = value_and_grad(problem(torch.float64, chols), q0.double())
+    torch.cuda.synchronize()
+    for what, a, b, c in (("log-posterior", v, vp, v64), ("gradient", g, gp, g64)):
+        err_k, err_p = rel_to_max(a, c)[1], rel_to_max(b, c)[1]
+        check(err_k <= 3 * err_p + 1e-4,
+              f"SNMGP whitened {what} (4 chains) vs float64, of max: kernels {err_k:.3e}, plain "
+              f"{err_p:.3e}; tol 3x plain + 1e-4")
+    print(f"time of one value_and_grad of the SNMGP density (N={N}, 4 chains): "
+          f"{host_ms(lambda: value_and_grad(lp, q0), reps=10):.3f} ms host clock ({smi})")
+
+    # both routes of mvn_logpdf_kron at MN = 1024 and 2048, 4 chains
+    for n in (N // 2, N):
+        A = torch.randn(C, n, n, device=dev, generator=gen)
+        K = A @ A.mT / n + 0.1 * torch.eye(n, device=dev)
+        Bm = torch.randn(C, M, M, device=dev, generator=gen)
+        B = Bm @ Bm.mT + 0.5 * torch.eye(M, device=dev)
+        y = torch.randn(M * n, device=dev, generator=gen)
+        s2 = torch.full((C,), 0.1, device=dev)
+        dense = lambda: mvn_logpdf_kron(y, torch.zeros_like(y), B, K, s2, dense_max_dim=10**9)  # noqa: E731
+        eigen = lambda: mvn_logpdf_kron(y, torch.zeros_like(y), B, K, s2, dense_max_dim=0)  # noqa: E731
+        vd, ve = dense(), eigen()
+        torch.cuda.synchronize()
+        print(f"time mvn_logpdf_kron MN={M * n} (4 chains): dense route "
+              f"{host_ms(dense, reps=10):.3f} ms, eigen route {host_ms(eigen, reps=10):.3f} ms, host "
+              f"clock to a sync; values agree to {rel_to_max(vd, ve)[1]:.2e} of max ({smi})")
+    return launched
+
 
 
 def main() -> int:
@@ -520,8 +976,8 @@ def main() -> int:
     good = torch.ones(4 * S_CHUNK, dtype=torch.bool, device=dev)
     good[bad] = False
     chol_err = max(rel_to_max(L[good], L_ref[good])[0], rel_to_max(Linv[good], Linv_ref[good])[0])
-    # f32 factors of grams with condition ~1e5: the kernel's column sweep and
-    # the library's blocked factorization round differently, so both are
+    # f32 factors of grams with condition ~1e5: the kernel's and the
+    # library's blocked factorizations round differently, so both are
     # held against the float64 factors of the same f32 input, and the
     # kernel may be at most 3x as far off as the library (+ a floor)
     fwd = {}
@@ -588,7 +1044,7 @@ def main() -> int:
 
     def serving_calls(p, ny, nfy):
         return {
-            "predict_Y": (lambda: (predict.predict_Y(p, Zn, X_list),), {"gibbs"}),
+            "predict_Y": (lambda: (predict.predict_Y(p, Zn, X_list),), {"gibbs", "rbf"}),
             "sample_Y": (lambda: predict.sample_Y(p, Zn, X_list, n_sample=N_DRAWS, noise=ny),
                          forwards),
             "sample_FY": (lambda: predict.sample_FY(p, Zn, x_fy, n_sample=S_CHUNK, noise=nfy),
@@ -664,7 +1120,8 @@ def main() -> int:
                      n_el * (3 * d + 12))),
         "chol_inv (32,100,100)": (
             lambda: ck.chol_inv_cuda(K_stack), lambda: ck.chol_inv_plain(K_stack), None, 5,
-            bound_ms(3 * 4 * nb * M_ECOG**2, nb * 2 * M_ECOG**3 / 3)),
+            bound_ms(4 * nb * (M_ECOG * (M_ECOG + 1) // 2 + 2 * M_ECOG**2),
+                     nb * 2 * M_ECOG**3 / 3)),
         "quadform_diag (8,3003,100,100)x(8,100,512)": (
             lambda: ck.quadform_diag_cuda(A, W), lambda: ck.quadform_diag_plain(A, W),
             lambda: torch.einsum("smn,sgmk->sgnk", A, W).square().sum(-1), 1,
@@ -707,11 +1164,33 @@ def main() -> int:
     for k in ck.KERNELS:
         launches[k] += trained[k]
 
+    # ------------------------------------------------------ fully Bayesian
+    t0 = time.perf_counter()
+    fb_launched, fb_metrics, svc_K = fb_svc_nuts(ck, dev, smi)
+    print(f"SVC NUTS phase {time.perf_counter() - t0:.1f} s; launches {fb_launched}")
+    fb = fb_kernel_checks(ck, gen, dev, svc_K)
+    t0 = time.perf_counter()
+    sn_launched = fb_snmgp(ck, dev, smi)
+    print(f"SNMGP phase {time.perf_counter() - t0:.1f} s; launches {sn_launched}")
+    for k in ck.KERNELS:
+        launches[k] += fb_launched[k] + sn_launched[k]
+    for name, ((kern, plain, lib, inner, (b_ms, b_by)), _) in fb.items():
+        k_ms = device_ms(kern, inner=inner)
+        p_ms = device_ms(plain, inner=inner)
+        l_ms = None if lib is None else device_ms(lib, inner=inner)
+        times[name] = (k_ms, p_ms, l_ms, (b_ms, b_by))
+        print(f"time {name}: kernel {k_ms:.4f} ms on the device, plain {p_ms:.4f} ms, library "
+              f"{'n/a' if l_ms is None else f'{l_ms:.4f} ms'}, bound {b_ms:.4f} ms ({b_by}), "
+              f"{b_ms / k_ms:.1%} of bound ({smi})")
+
     src = "collaborative_nonstationary_multivariate_gaussian_process_tpu_torch/csrc/"
     tpu = "collaborative_nonstationary_multivariate_gaussian_process_tpu/ops/pallas_kernels.py"
     rows = [
         ("gibbs", f"{tpu}:93", max(gibbs_errs)),
-        ("chol_inv", f"{tpu}:357", chol_err),
+        ("rbf", f"{tpu}:143", fb["rbf"][1]),
+        ("kron_mv", f"{tpu}:189", fb["kron_mv"][1]),
+        ("cholesky", f"{tpu}:273", fb["cholesky"][1]),
+        ("chol_inv", f"{tpu}:357", max(chol_err, fb["chol_inv (4,200,200)"][1])),
         ("quadform_diag", f"{tpu}:577", qf_err),
     ]
     for n, line in (("quadform_diag_dw", 648), ("quadform_diag_da", 667)):

@@ -1,26 +1,26 @@
-"""Hand-written CUDA kernels of the training and serving paths, with their
-plain versions.
+"""Hand-written CUDA kernels of the port, with their plain versions.
 
-The counterpart of the JAX package's `ops/pallas_kernels.py`.  Five TPU
-kernels are on the path (the forwards of the Gibbs gram, the fused
-Cholesky + triangular inverse and the variance quadratic form, and the two
-backward kernels of the quadratic form), and each has here:
+The counterpart of the JAX package's `ops/pallas_kernels.py`.  Every TPU
+kernel there has one here (the Gibbs and RBF grams, the Kronecker matvec,
+the batched Cholesky, the blocked fused Cholesky + triangular inverse, the
+variance quadratic form and its two backward kernels), and each has:
 
-  - a wrapper (`gibbs_cuda`, `chol_inv_cuda`, `quadform_diag_cuda`,
-    `quadform_diag_dw_cuda`, `quadform_diag_da_cuda`) that launches the
-    kernel for a CUDA tensor and counts the launch in `LAUNCHES`; given a
-    CPU tensor it returns the plain version instead.  For a CUDA tensor it
-    launches or raises: there is no fallback;
-  - a plain PyTorch version (`gibbs_plain`, `chol_inv_plain`,
-    `quadform_diag_plain`, `quadform_diag_dw_plain`,
-    `quadform_diag_da_plain`) with the same math.  The CPU tests run it, and
+  - a wrapper (`gibbs_cuda`, `rbf_cuda`, `kron_mv_cuda`, `cholesky_cuda`,
+    `chol_inv_cuda`, `quadform_diag_cuda`, `quadform_diag_dw_cuda`,
+    `quadform_diag_da_cuda`) that launches the kernel for a CUDA tensor and
+    counts the launch in `LAUNCHES`; given a CPU tensor it returns the plain
+    version instead.  For a CUDA tensor it launches or raises: there is no
+    fallback;
+  - a plain PyTorch version (`gibbs_plain`, `rbf_plain`, `kron_mv_plain`,
+    `cholesky_plain`, `chol_inv_plain`, `quadform_diag_plain`,
+    `quadform_diag_dw_plain`, `quadform_diag_da_plain`) with the same math.  The CPU tests run it, and
     `chip_smoke.py` holds each kernel against it on the card.
 
-Sources live in `../csrc/*.cu`.  Each is compiled on first use with `nvcc`
-for `sm_90a` into `build/` at the repository root (one shared library per
-source, named by a hash of source and flags) and bound with `ctypes`; every
-C entry returns `cudaGetLastError()`.  Nothing is compiled or loaded at
-import time.
+Sources live in `../csrc/*.cu` (with the shared header `chol_blocked.cuh`).
+Each is compiled on first use with `nvcc` for `sm_90a` into `build/` at the
+repository root (one shared library per source, named by a hash of the
+sources and flags) and bound with `ctypes`; every C entry returns
+`cudaGetLastError()`.  Nothing is compiled or loaded at import time.
 """
 
 from __future__ import annotations
@@ -43,6 +43,12 @@ __all__ = [
     "build",
     "gibbs_cuda",
     "gibbs_plain",
+    "rbf_cuda",
+    "rbf_plain",
+    "kron_mv_cuda",
+    "kron_mv_plain",
+    "cholesky_cuda",
+    "cholesky_plain",
     "chol_inv_cuda",
     "chol_inv_plain",
     "cholesky_nan",
@@ -55,7 +61,10 @@ __all__ = [
     "max_m",
 ]
 
-KERNELS = ("gibbs", "chol_inv", "quadform_diag", "quadform_diag_dw", "quadform_diag_da")
+KERNELS = (
+    "gibbs", "rbf", "kron_mv", "cholesky", "chol_inv", "quadform_diag",
+    "quadform_diag_dw", "quadform_diag_da",
+)
 
 # Launches of each kernel since the last `reset_launches()`.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -70,6 +79,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     # x1, x2, l1, l2, scale2, out, s, n, m, d, stream
     "gibbs": [_P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _P],
+    # x1, x2, scale2, ls, out, s, n, m, stream
+    "rbf": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # K, B, y, out, c, n1, n2, m1, m2, stream
+    "kron_mv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # a, l_out, batch, m, stream
+    "cholesky": [_P, _P, _I, _I, _P],
     # a, l_out, linv_out, batch, m, stream
     "chol_inv": [_P, _P, _P, _I, _I, _P],
     # A, W, V, s, g, m, n, stream
@@ -97,7 +112,8 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     src = (_CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src + headers + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
     return _BUILD / f"lib{name}-{digest}.so"
 
 
@@ -144,9 +160,10 @@ def _library(name: str) -> ctypes.CDLL:
 
 
 def max_m(name: str, device=None) -> int:
-    """Largest M that kernel `name` (any of `KERNELS` but "gibbs") takes on
-    `device`: its block keeps M x M matrices in shared memory, and the
-    layout (`smem_bytes` in its source) meets the card's opt-in limit."""
+    """Largest M that kernel `name` (any of `KERNELS` but "gibbs" and
+    "rbf") takes on `device`: the layout of its shared memory
+    (`smem_bytes` in its source) meets the card's opt-in limit; for
+    "kron_mv", the largest task dimension it keeps in registers."""
     device = torch.device("cuda" if device is None else device)
     index = torch.cuda.current_device() if device.index is None else device.index
     key = (name, index)
@@ -228,6 +245,151 @@ def gibbs_cuda(x1, x2, ell1, ell2, scale2=1.0):
 
 
 # ---------------------------------------------------------------------------
+# Stationary RBF gram
+# ---------------------------------------------------------------------------
+
+
+def scaled_sq_dist(x1, x2, length_scale):
+    """sq_dist(x1 / l, x2 / l), the distance `rbf` exponentiates.  l a scalar
+    (a float or a 0-d tensor) gives (N, M); l of shape (S,) gives (S, N, M),
+    one per lengthscale, each the exact `sq_dist` of the scaled inputs."""
+    if not (isinstance(length_scale, torch.Tensor) and length_scale.ndim == 1):
+        return _kernels.sq_dist(x1 / length_scale, x2 / length_scale)
+    p1, p2 = _kernels._as_points(x1), _kernels._as_points(x2)
+    if p1.shape[-1] > 4:
+        return torch.stack([_kernels.sq_dist(p1 / l, p2 / l) for l in length_scale])
+    l = length_scale[:, None, None]
+    diff = (p1 / l)[:, :, None, :] - (p2 / l)[:, None, :, :]
+    return torch.sum(diff * diff, dim=-1)
+
+
+def _pair_axis(value):
+    """A per-pair (S,) scale as (S, 1, 1), to broadcast over the grams;
+    anything else is a scalar and stays."""
+    return value[:, None, None] if isinstance(value, torch.Tensor) and value.ndim == 1 else value
+
+
+def rbf_plain(x1, x2, scale2=1.0, length_scale=1.0):
+    """RBF gram scale2 * exp(-0.5 sq_dist(x1 / l, x2 / l)) in plain PyTorch,
+    the formula of the JAX `ops.kernels.rbf`.  scale2 and length_scale are
+    scalars, or (S,) tensors of (scale, lengthscale) pairs (one broadcast to
+    the other): then (S, N, M), one gram per pair."""
+    r2 = scaled_sq_dist(x1, x2, length_scale)
+    return _pair_axis(scale2) * torch.exp(-0.5 * r2)
+
+
+def rbf_cuda(x1, x2, scale2=1.0, length_scale=1.0):
+    """RBF gram through `csrc/rbf.cu` for 1-D CUDA float32 inputs, all pairs
+    in one launch; `rbf_plain` for CPU tensors.  Shapes as `rbf_plain`."""
+    if not x1.is_cuda:
+        return rbf_plain(x1, x2, scale2, length_scale)
+    if x1.ndim != 1 or x2.ndim != 1:
+        raise ValueError(
+            f"rbf: the CUDA kernel takes 1-D inputs, got {tuple(x1.shape)} and {tuple(x2.shape)}"
+        )
+    device = x1.device
+    sc = torch.as_tensor(scale2, dtype=torch.float32, device=device)
+    ls = torch.as_tensor(length_scale, dtype=torch.float32, device=device)
+    if sc.ndim > 1 or ls.ndim > 1:
+        raise ValueError(f"rbf: scale and lengthscale must be scalars or (S,), got "
+                         f"{tuple(sc.shape)} and {tuple(ls.shape)}")
+    batched = sc.ndim == 1 or ls.ndim == 1
+    s = torch.broadcast_shapes(sc.shape, ls.shape, (1,))[0]
+    sc = sc.expand(s).contiguous()
+    ls = ls.expand(s).contiguous()
+    p1, p2 = x1.contiguous(), x2.contiguous()
+    _check_cuda_f32("rbf", p1, p2, sc, ls)
+    n, m = p1.shape[0], p2.shape[0]
+    if s > 65535 or (n + 31) // 32 > 65535:
+        raise ValueError(f"rbf: grid too large for S={s}, N={n}")
+    out = torch.empty((s, n, m), dtype=torch.float32, device=device)
+    if out.numel():
+        _launch("rbf", device, p1.data_ptr(), p2.data_ptr(), sc.data_ptr(), ls.data_ptr(),
+                out.data_ptr(), s, n, m)
+    return out if batched else out[0]
+
+
+# ---------------------------------------------------------------------------
+# Kronecker matvec
+# ---------------------------------------------------------------------------
+
+
+def kron_mv_plain(B, K, y):
+    """(B kron K) y = vec((K Y B^T)^T) in plain PyTorch, Y = y reshaped (M2,
+    N2) and transposed, as the JAX `ops.kron.kron_mv`.  B (..., M1, M2), K
+    (..., N1, N2), y (..., M2 * N2), leading (chain) axes broadcast; returns
+    (..., M1 * N1)."""
+    m2, n2 = B.shape[-1], K.shape[-1]
+    Y = y.reshape(y.shape[:-1] + (m2, n2)).transpose(-1, -2)
+    A = K @ Y @ B.transpose(-1, -2)  # (..., N1, M1)
+    return A.transpose(-1, -2).reshape(A.shape[:-2] + (-1,))
+
+
+def kron_mv_cuda(B, K, y):
+    """`kron_mv_plain` through `csrc/kron_mv.cu` for CUDA float32 tensors
+    with M1, M2 <= max_m("kron_mv") (16) and at most one leading chain axis
+    (broadcast across the three operands), one pass over K; `kron_mv_plain`
+    for CPU tensors."""
+    if not K.is_cuda:
+        return kron_mv_plain(B, K, y)
+    if B.ndim not in (2, 3) or K.ndim not in (2, 3) or y.ndim not in (1, 2):
+        raise ValueError(f"kron_mv: expected B (C, M1, M2), K (C, N1, N2), y (C, M2 N2) or "
+                         f"no C; got {tuple(B.shape)}, {tuple(K.shape)}, {tuple(y.shape)}")
+    (m1, m2), (n1, n2) = B.shape[-2:], K.shape[-2:]
+    if y.shape[-1] != m2 * n2:
+        raise ValueError(f"kron_mv: y has {y.shape[-1]} entries, expected {m2} x {n2}")
+    lead = [t.shape[0] for t, d in ((B, 3), (K, 3), (y, 2)) if t.ndim == d]
+    batched = bool(lead)
+    c = torch.broadcast_shapes(*((n,) for n in lead))[0] if lead else 1
+    Bc = (B if B.ndim == 3 else B[None]).expand(c, m1, m2).contiguous()
+    Kc = (K if K.ndim == 3 else K[None]).expand(c, n1, n2).contiguous()
+    yc = (y if y.ndim == 2 else y[None]).expand(c, m2 * n2).contiguous()
+    device = _check_cuda_f32("kron_mv", Kc, Bc, yc)
+    if max(m1, m2) > max_m("kron_mv", device) or c > 65535:
+        raise ValueError(f"kron_mv: task dims ({m1}, {m2}) above {max_m('kron_mv', device)} "
+                         f"or {c} chains")
+    out = torch.empty((c, m1 * n1), dtype=torch.float32, device=device)
+    if out.numel():
+        _launch("kron_mv", device, Kc.data_ptr(), Bc.data_ptr(), yc.data_ptr(), out.data_ptr(),
+                c, n1, n2, m1, m2)
+    return out if batched else out[0]
+
+
+# ---------------------------------------------------------------------------
+# Batched Cholesky
+# ---------------------------------------------------------------------------
+
+
+def _square_batch(name, K):
+    m = K.shape[-1]
+    if K.ndim < 2 or K.shape[-2] != m:
+        raise ValueError(f"{name}: expected (..., M, M), got {tuple(K.shape)}")
+    Kb = K.reshape(-1, m, m).contiguous()
+    return Kb, m, _check_cuda_f32(name, Kb)
+
+
+def cholesky_plain(K):
+    """Lower Cholesky factor of K (..., M, M), NaN in the lower triangle of a
+    member whose factorization fails (`cholesky_nan`)."""
+    return cholesky_nan(K)[0]
+
+
+def cholesky_cuda(K):
+    """Lower Cholesky factor through `csrc/cholesky.cu` for a CUDA float32
+    K (..., M, M), M <= max_m("cholesky"), with `cholesky_plain`'s failure
+    semantics; `cholesky_plain` for a CPU tensor."""
+    if not K.is_cuda:
+        return cholesky_plain(K)
+    Kb, m, device = _square_batch("cholesky", K)
+    if m > max_m("cholesky", device):
+        raise ValueError(f"cholesky: M={m} above max_m {max_m('cholesky', device)}")
+    L = torch.empty_like(Kb)
+    if Kb.numel():
+        _launch("cholesky", device, Kb.data_ptr(), L.data_ptr(), Kb.shape[0], m)
+    return L.reshape(K.shape)
+
+
+# ---------------------------------------------------------------------------
 # Fused Cholesky + triangular inverse
 # ---------------------------------------------------------------------------
 
@@ -255,20 +417,14 @@ def chol_inv_plain(K):
 
 
 def chol_inv_cuda(K):
-    """(L, L^-1) through `csrc/chol_inv.cu` for a CUDA float32 K (..., M, M)
-    with M <= max_m("chol_inv"); `chol_inv_plain` for a CPU tensor."""
+    """(L, L^-1) through the blocked `csrc/chol_inv.cu` for a CUDA float32 K
+    (..., M, M), any M <= max_m("chol_inv") (~3400), with the failure
+    semantics of `chol_inv_plain`; `chol_inv_plain` for a CPU tensor."""
     if not K.is_cuda:
         return chol_inv_plain(K)
-    m = K.shape[-1]
-    if K.ndim < 2 or K.shape[-2] != m:
-        raise ValueError(f"chol_inv: expected (..., M, M), got {tuple(K.shape)}")
-    Kb = K.reshape(-1, m, m).contiguous()
-    device = _check_cuda_f32("chol_inv", Kb)
+    Kb, m, device = _square_batch("chol_inv", K)
     if m > max_m("chol_inv", device):
-        raise ValueError(
-            f"chol_inv: M={m} does not fit one block's shared memory "
-            f"(at most M={max_m('chol_inv', device)}); a blocked variant is needed"
-        )
+        raise ValueError(f"chol_inv: M={m} above max_m {max_m('chol_inv', device)}")
     L = torch.empty_like(Kb)
     Linv = torch.empty_like(Kb)
     if Kb.numel():

@@ -1,10 +1,13 @@
 """Covariance kernels: stationary RBF and the Gibbs nonstationary kernel.
 
-Same formulas as the JAX package's `ops/kernels.py:33-119` (reference
-`create_RBF` / `create_Gibbs`, code/utils.py:75-103).  `gibbs` goes through
-the hand-written Gibbs kernel (`ops.cuda_kernels.gibbs_cuda`) for CUDA
-tensors, and its backward is the closed form of the JAX package's
-`_gibbs_bwd` (pallas_kernels.py:121-137), there in plain jnp as here.
+Same formulas as the JAX package's `ops/kernels.py:33-148` (reference
+`create_RBF` / `create_Gibbs` / `Nonstationary_RBF_cov`, code/utils.py:75-103,
+SIM_code/Utility/kernels.py:46-73).  `rbf` and `gibbs` go through the
+hand-written RBF and Gibbs kernels (`ops.cuda_kernels.rbf_cuda`,
+`gibbs_cuda`) for CUDA tensors, and their backwards are the closed forms of
+the JAX package's `_rbf_bwd` and `_gibbs_bwd` (pallas_kernels.py:121-178),
+there in plain jnp as here.  Both take a leading chain (or draw) axis on
+their scale and lengthscale arguments.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import torch
 
 from . import cuda_kernels
 
-__all__ = ["sq_dist", "rbf", "gibbs"]
+__all__ = ["sq_dist", "rbf", "gibbs", "nonstationary_rbf"]
 
 
 def _as_points(x):
@@ -43,12 +46,65 @@ def sq_dist(x1, x2):
     return torch.clamp(n1 + n2 - 2.0 * (x1 @ x2.T), min=0.0)
 
 
+class _RBF(torch.autograd.Function):
+    """The RBF gram by the kernel; the backward in closed form (the JAX
+    package's `_rbf_bwd`, for any input dimension and per-pair scales),
+    with E = exp(-r2 / 2) and r2 = sq_dist(x1 / l, x2 / l):
+
+      dk/ds = E,   dk/dl = k r2 / l,   dk/dx1 = -k (x1 - x2) / l^2 = -dk/dx2
+
+    A scale or lengthscale that is a Python float gets no gradient; a (S,)
+    one gets the sum over its gram."""
+
+    @staticmethod
+    def forward(ctx, x1, x2, scale2, length_scale):
+        K = cuda_kernels.rbf_cuda(x1, x2, scale2, length_scale)
+        ctx.scale2, ctx.length_scale = scale2, length_scale
+        ctx.save_for_backward(x1, x2)
+        return K
+
+    @staticmethod
+    def backward(ctx, g):
+        x1, x2 = ctx.saved_tensors
+        need_x1, need_x2, need_s, need_l = ctx.needs_input_grad
+        s = cuda_kernels._pair_axis(ctx.scale2)
+        l = cuda_kernels._pair_axis(ctx.length_scale)
+        r2 = cuda_kernels.scaled_sq_dist(x1, x2, ctx.length_scale)
+        gE = g * torch.exp(-0.5 * r2)
+        gK = gE * s
+        d_x1 = d_x2 = d_s = d_l = None
+        if need_s:
+            d_s = _sum_to_param(gE, ctx.scale2)
+        if need_l:
+            d_l = _sum_to_param(gK * r2 / l, ctx.length_scale)
+        if need_x1 or need_x2:
+            p1, p2 = _as_points(x1), _as_points(x2)
+            if p1.shape[-1] <= 4:  # the exact scaled difference, as sq_dist has it
+                D = (p1 / l)[..., :, None, :] - (p2 / l)[..., None, :, :]
+                w = (-gK / l)[..., None] * D  # (..., N1, N2, d); the pairs share the inputs
+                d_x1 = w.sum(-2).sum_to_size(p1.shape).reshape(x1.shape)
+                d_x2 = (-w.sum(-3)).sum_to_size(p2.shape).reshape(x2.shape)
+            else:
+                c = (-gK / (l * l)).sum_to_size(r2.shape[-2:])
+                d_x1 = (c.sum(1)[:, None] * p1 - c @ p2).reshape(x1.shape)
+                d_x2 = (c.sum(0)[:, None] * p2 - c.T @ p1).reshape(x2.shape)
+        return d_x1, d_x2, d_s, d_l
+
+
+def _sum_to_param(t, param):
+    """A gram-shaped cotangent summed to the shape of a scale or lengthscale
+    tensor: per pair for (S,), to a scalar for a 0-d one."""
+    return t.sum(dim=(-2, -1)).sum_to_size(param.shape)
+
+
 def rbf(x1, x2, scale2=1.0, length_scale=1.0):
     """K(x,x') = scale2 * exp(-0.5 ||x-x'||^2 / length_scale^2); the inputs
     are divided by the length scale before the distance, as `create_RBF`
-    does.  No diagonal jitter."""
-    r2 = sq_dist(x1 / length_scale, x2 / length_scale)
-    return scale2 * torch.exp(-0.5 * r2)
+    does.  No diagonal jitter.  scale2 and length_scale are scalars (floats
+    or 0-d tensors) or (S,) tensors of per-chain pairs, giving (S, N1, N2).
+    Differentiable in every tensor argument (see `_RBF`); the CUDA kernel
+    takes 1-D inputs."""
+    return _RBF.apply(x1, x2, scale2, length_scale)
 
 
 class _Gibbs(torch.autograd.Function):
@@ -107,3 +163,27 @@ def gibbs(x1, x2, ell1, ell2, scale2=1.0):
     Differentiable in every argument (see `_Gibbs`).
     """
     return _Gibbs.apply(x1, x2, ell1, ell2, scale2)
+
+
+def nonstationary_rbf(x1, x2=None, sigma1=None, ell1=None, sigma2=None, ell2=None):
+    """Gibbs kernel with an input-dependent signal magnitude as well,
+
+      k(x,x') = s(x) s(x') sqrt(2 l(x) l(x') / (l^2 + l'^2)) exp(-d^2 / (l^2 + l'^2)),
+
+    the JAX `nonstationary_rbf` (ops/kernels.py:122-148; no diagonal jitter:
+    the log-density callers add it).  sigma and ell may carry a leading
+    chain axis, (C, N), giving (C, N1, N2); the Gibbs gram of all chains is
+    one launch."""
+    p1 = _as_points(x1)
+    n1 = p1.shape[0]
+    ones = lambda n: torch.ones(n, dtype=p1.dtype, device=p1.device)  # noqa: E731
+    ell1 = ones(n1) if ell1 is None else ell1
+    sigma1 = ones(n1) if sigma1 is None else sigma1
+    if x2 is None:
+        x2, sigma2, ell2 = x1, sigma1, ell1
+    else:
+        n2 = _as_points(x2).shape[0]
+        ell2 = ones(n2) if ell2 is None else ell2
+        sigma2 = ones(n2) if sigma2 is None else sigma2
+    amp = sigma1[..., :, None] * sigma2[..., None, :]
+    return amp * gibbs(x1, x2, ell1, ell2, 1.0)

@@ -1,7 +1,10 @@
-"""Linear-algebra primitives of the training and serving paths.
+"""Linear-algebra primitives of the training, serving and fully-Bayesian
+paths.
 
-The main-path subset of the JAX package's `ops/linalg.py`: masks and
-regularized factors, reparameterized sampling from explicit standard-normal
+The JAX package's `ops/linalg.py` less its dense-conditioning helpers: the
+vec <-> lower-triangle transforms of the flat parameter layouts, the batched
+Cholesky (a `torch.autograd.Function` over the Cholesky kernel with the
+Murray pullback), masks and regularized factors, reparameterized sampling from explicit standard-normal
 tensors, sparse-GP conditioning, the fused Cholesky + triangular inverse and
 the whitened forward substitution (each a `torch.autograd.Function` with the
 JAX package's matmul-only backward), the whitened marginal moments (whose
@@ -14,6 +17,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..config import DSVI_JITTER
@@ -21,6 +25,13 @@ from . import cuda_kernels
 from .cuda_kernels import cholesky_nan
 
 __all__ = [
+    "add_jitter",
+    "vec_to_tril",
+    "tril_to_vec",
+    "diag_indices_of_trilvec",
+    "uvec_to_lvec",
+    "lvec_to_uvec",
+    "cholesky",
     "tril_mask",
     "tril_regularized",
     "regularized_diag",
@@ -41,6 +52,118 @@ __all__ = [
 
 def _eye_like(X):
     return torch.eye(X.shape[-1], dtype=X.dtype, device=X.device)
+
+
+def add_jitter(K, jitter=DSVI_JITTER):
+    """K + jitter I on the last two dims."""
+    return K + jitter * _eye_like(K)
+
+
+# ---------------------------------------------------------------------------
+# vec <-> lower-triangular transforms (the flat layouts of the log-densities)
+# ---------------------------------------------------------------------------
+
+
+# Index tensors of the tril layout, built once per (n, length, device): a
+# log-density evaluates them in every leapfrog, and building them from numpy
+# each time would copy host to device each time.
+_INDEX_CACHE = {}
+
+
+def _cached_index(key, build):
+    if key not in _INDEX_CACHE:
+        _INDEX_CACHE[key] = build()
+    return _INDEX_CACHE[key]
+
+
+def _tril_idx(n, device):
+    def build():
+        rows, cols = np.tril_indices(n)
+        return torch.as_tensor(rows, device=device), torch.as_tensor(cols, device=device)
+
+    return _cached_index(("tril", n, str(device)), build)
+
+
+def vec_to_tril(v, n):
+    """Length n(n+1)/2 vector (..., T) -> (..., n, n) lower-triangular, in
+    the row-major order (0,0), (1,0), (1,1), (2,0), ... (JAX `vec_to_tril`,
+    reference `vec2lowtriangle`)."""
+    rows, cols = _tril_idx(n, v.device)
+    out = v.new_zeros(v.shape[:-1] + (n, n))
+    out[..., rows, cols] = v
+    return out
+
+
+def tril_to_vec(L, n=None):
+    """Inverse of `vec_to_tril`."""
+    rows, cols = _tril_idx(L.shape[-1] if n is None else n, L.device)
+    return L[..., rows, cols]
+
+
+def diag_indices_of_trilvec(n):
+    """Positions of the diagonal entries in the length-n(n+1)/2 tril vec
+    (`np.cumsum(np.arange(1, n + 1)) - 1`, reference utils.py:12)."""
+    return np.cumsum(np.arange(1, n + 1)) - 1
+
+
+def _diag_mask(n, length, device):
+    def build():
+        mask = np.zeros(length, dtype=bool)
+        mask[diag_indices_of_trilvec(n)] = True
+        return torch.as_tensor(mask, device=device)
+
+    return _cached_index(("diag", n, length, str(device)), build)
+
+
+def uvec_to_lvec(uvec, n):
+    """Unconstrained tril vec (..., T) -> constrained: exp on the diagonal
+    entries (reference `uLvec2Lvec` / `uLvecs2Lvecs`)."""
+    mask = _diag_mask(n, uvec.shape[-1], uvec.device)
+    return torch.where(mask, torch.exp(uvec), uvec)
+
+
+def lvec_to_uvec(lvec, n):
+    """Inverse transform, log on the diagonal (reference `Lvec2uLvec`); the
+    log is guarded on the off-diagonal lanes it does not use."""
+    mask = _diag_mask(n, lvec.shape[-1], lvec.device)
+    safe = torch.where(mask, torch.clamp(lvec, min=1e-300), torch.ones_like(lvec))
+    return torch.where(mask, torch.log(safe), lvec)
+
+
+# ---------------------------------------------------------------------------
+# Batched Cholesky
+# ---------------------------------------------------------------------------
+
+
+class _Cholesky(torch.autograd.Function):
+    """Lower Cholesky factor by the kernel; the backward is the Murray (2016)
+    pullback of the JAX package's `_chol_bwd` (pallas_kernels.py:406-428),
+    K̄ = L^-T sym(Φ) L^-1 with Φ = tril(L^T L̄), diagonal halved, by two
+    triangular solves (plain jnp there, plain PyTorch here)."""
+
+    @staticmethod
+    def forward(ctx, K):
+        L = cuda_kernels.cholesky_cuda(K)
+        ctx.save_for_backward(L)
+        return L
+
+    @staticmethod
+    def backward(ctx, Lbar):
+        (L,) = ctx.saved_tensors
+        m = L.shape[-1]
+        eye = torch.eye(m, dtype=L.dtype, device=L.device)
+        phi = (L.transpose(-1, -2) @ Lbar) * (torch.ones_like(eye).tril() - 0.5 * eye)
+        sym = 0.5 * (phi + phi.transpose(-1, -2))
+        t1 = torch.linalg.solve_triangular(L.transpose(-1, -2), sym, upper=True)
+        return torch.linalg.solve_triangular(L, t1, upper=False, left=False)
+
+
+def cholesky(K):
+    """Lower Cholesky factor of SPD K (..., M, M) through the Cholesky kernel
+    (`cuda_kernels.cholesky_cuda`), differentiable (Murray pullback).  A
+    member that is not numerically positive-definite gets NaN in its lower
+    triangle, as `jnp.linalg.cholesky` gives, instead of an error."""
+    return _Cholesky.apply(K)
 
 
 def tril_mask(X):

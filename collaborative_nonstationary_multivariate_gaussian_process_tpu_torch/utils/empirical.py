@@ -1,0 +1,116 @@
+"""Empirical (variogram-based) parameter estimation for MCMC initialization.
+
+The port's own NumPy/SciPy copy of the JAX package's `utils/empirical.py:
+31-113` (reference `SIM_code/Utility/empirical_estimation.py:35-140`):
+sliding-window Gaussian variogram fits for the local (sigma, ell), windowed
+sample covariances for the local Cholesky process, and a moving-average
+smoother.  The JAX package binds a C++ library for the pair loops
+(`utils/native.py`); this copy runs that module's NumPy versions of the
+same loops, in the same pair order.  Importing the JAX module would run
+the JAX package's `__init__`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+from scipy.optimize import curve_fit
+
+from ..config import PRECISION
+
+__all__ = [
+    "semivariogram",
+    "variogram_gaussian",
+    "global_estimation",
+    "local_estimation",
+    "smooth",
+]
+
+
+def _pairs(x, Y):
+    """All pairs i < j in row-major order: (lag (P,), sv (m, P))."""
+    iu, ju = np.triu_indices(x.shape[0], k=1)
+    return x[ju] - x[iu], (0.5 * (Y[ju] - Y[iu]) ** 2).T
+
+
+def semivariogram(x, Y, indx):
+    """Experimental semivariogram of output `indx` over all lags
+    (empirical_estimation.py:35-56): (lag, sv)."""
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(Y, dtype=np.float64)[:, indx]
+    lag, sv = _pairs(x, y[:, None])
+    return lag, sv[0]
+
+
+def variogram_gaussian(s, sigma, l):
+    """Gaussian variogram model (empirical_estimation.py:59-60)."""
+    return sigma**2 * (1 - np.exp(-0.5 * s**2 / l**2))
+
+
+def global_estimation(x, Y):
+    """Global covariance Cholesky (empirical_estimation.py:63-68)."""
+    M = Y.shape[1]
+    S = np.cov(Y.T)
+    L_f = np.linalg.cholesky(S + PRECISION * np.eye(M))
+    return S, L_f[np.tril_indices(M)]
+
+
+def _windowed_scatter_cov(Y, window):
+    """out[p] = Y[s:e]^T Y[s:e] / max(e - s - 1, 1), s = max(0, p - w),
+    e = min(p + w, n - 1) (the reference's window convention)."""
+    n, m = Y.shape
+    out = np.empty((n, m, m))
+    for p in range(n):
+        seg = Y[max(0, p - window):min(p + window, n - 1)]
+        out[p] = seg.T @ seg / max(seg.shape[0] - 1, 1)
+    return out
+
+
+def local_estimation(x, Y, window_size: int = 30):
+    """Sliding-window local parameter estimation
+    (empirical_estimation.py:71-140).  Returns a dict of per-point arrays:
+    sigmas (N,), ls (N,), L_vecs (N, M(M+1)/2), stds (N, M), R (N, M, M)
+    local correlations, B (N, M, M) covariances."""
+    x = np.asarray(x, dtype=np.float64)
+    Y = np.asarray(Y, dtype=np.float64)
+    N, M = Y.shape
+    sigmas, ls, L_vecs, stds, Rs, Bs = [], [], [], [], [], []
+    S_all = _windowed_scatter_cov(Y, window_size)
+    for n in range(N):
+        start = max(0, n - window_size)
+        end = min(n + window_size, N - 1)
+        x_seg, Y_seg = x[start:end], Y[start:end]
+        lag, sv_all = _pairs(x_seg, Y_seg)
+        cofs = []
+        for m in range(M):
+            try:
+                cof, _ = curve_fit(variogram_gaussian, lag, sv_all[m], maxfev=2000)
+            except RuntimeError:
+                cof = np.array([np.std(Y_seg[:, m]), np.ptp(x_seg) / 2 + 1e-6])
+            cofs.append(np.abs(cof))
+        cof = np.mean(np.stack(cofs), axis=0)
+        sigmas.append(cof[0])
+        ls.append(cof[1])
+        S = S_all[n]
+        try:
+            L_f = np.linalg.cholesky(S)
+        except np.linalg.LinAlgError:
+            S = S + PRECISION * np.eye(M)
+            L_f = np.linalg.cholesky(S)
+        Bs.append(S)
+        L_vecs.append(L_f[np.tril_indices(M)])
+        D = np.sqrt(np.diag(S))
+        stds.append(D)
+        Rs.append(np.diag(1.0 / D) @ S @ np.diag(1.0 / D))
+    return dict(sigmas=np.array(sigmas), ls=np.array(ls), L_vecs=np.stack(L_vecs),
+                stds=np.stack(stds), R=np.stack(Rs), B=np.stack(Bs))
+
+
+def smooth(a, window: int = 10):
+    """Centred moving-average smoother (the reference smooths its local
+    estimates before initializing samplers)."""
+    a = np.asarray(a, dtype=float)
+    kernel = np.ones(window) / window
+    pad = window // 2
+    padded = np.pad(a, ((pad, window - 1 - pad),) + ((0, 0),) * (a.ndim - 1), mode="edge")
+    out = np.apply_along_axis(lambda v: np.convolve(v, kernel, mode="valid"), 0, padded)
+    return out[: a.shape[0]]

@@ -13,12 +13,20 @@ import pytest
 import torch
 
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import cnmgp
+from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import (
+    logdensities as ld,
+)
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops import (
     cuda_kernels as ck,
 )
+from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops import kernels, kron, linalg
+from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils.sim import sim_mnts
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
+
+# the kernels a DSVI training step launches
+TRAIN_KERNELS = ("gibbs", "chol_inv", "quadform_diag", "quadform_diag_dw", "quadform_diag_da")
 
 
 @pytest.fixture
@@ -112,6 +120,20 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     m = ck.max_m("chol_inv") + 1
     with pytest.raises(ValueError):
         ck.chol_inv_cuda(torch.eye(m, device=dev))
+    with pytest.raises(ValueError):
+        ck.chol_inv_cuda(torch.eye(4, 5, device=dev))
+    with pytest.raises(ValueError):
+        ck.cholesky_cuda(torch.eye(ck.max_m("cholesky") + 1, device=dev))
+    with pytest.raises(TypeError):
+        ck.cholesky_cuda(torch.eye(4, device=dev, dtype=torch.float64))
+    with pytest.raises(ValueError):  # the RBF kernel takes 1-D inputs
+        ck.rbf_cuda(torch.rand(4, 2, device=dev), torch.rand(4, 2, device=dev), 1.0, 0.5)
+    with pytest.raises(ValueError):  # task dims above 16
+        ck.kron_mv_cuda(torch.ones(17, 17, device=dev), torch.ones(3, 3, device=dev),
+                        torch.ones(51, device=dev))
+    with pytest.raises(ValueError):  # y does not match B kron K
+        ck.kron_mv_cuda(torch.ones(2, 2, device=dev), torch.ones(3, 3, device=dev),
+                        torch.ones(5, device=dev))
     m = ck.max_m("quadform_diag") + 1
     with pytest.raises(ValueError):
         ck.quadform_diag_cuda(torch.ones(m, 3, device=dev), torch.ones(1, m, m, device=dev))
@@ -209,7 +231,7 @@ def test_negative_selbo_backward_on_the_card_matches_plain(dev):
     ck.reset_launches()
     g_kernel = grads(torch.float32)
     torch.cuda.synchronize()
-    assert all(ck.LAUNCHES[k] > 0 for k in ck.KERNELS), ck.LAUNCHES
+    assert all(ck.LAUNCHES[k] > 0 for k in TRAIN_KERNELS), ck.LAUNCHES
     with _plain_versions():
         g_plain = grads(torch.float32)
         g_64 = grads(torch.float64)
@@ -218,3 +240,152 @@ def test_negative_selbo_backward_on_the_card_matches_plain(dev):
         err_k = float((gk.double() - g64).abs().max())
         err_p = float((gp.double() - g64).abs().max())
         assert err_k <= 3 * err_p + 1e-5 * scale, (name, err_k, err_p, scale)
+
+
+# ---------------------------------------------------------------------------
+# The fully-Bayesian path's kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("S, n, m", [(None, 1, 1), (None, 100, 100), (4, 37, 70), (3, 200, 33)])
+def test_rbf_kernel_matches_plain(dev, S, n, m):
+    g = _gen(dev, n + m)
+    x1, x2 = torch.rand(n, device=dev, generator=g), torch.rand(m, device=dev, generator=g)
+    if S is None:
+        s2, ls = 2.0, 0.4
+    else:
+        s2 = torch.rand(S, device=dev, generator=g) + 0.5
+        ls = torch.rand(S, device=dev, generator=g) + 0.1
+    before = ck.LAUNCHES["rbf"]
+    K = ck.rbf_cuda(x1, x2, s2, ls)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["rbf"] == before + 1
+    K_ref = ck.rbf_plain(x1, x2, s2, ls)
+    assert K.shape == K_ref.shape and torch.allclose(K, K_ref, rtol=1e-5, atol=1e-30)
+
+
+def _grad_pair(fn, inputs, weights):
+    """Gradients of sum(w * fn(*inputs)) by the kernels and by the plain
+    versions, float32, and by the plain versions in float64."""
+    out = []
+    for dtype, plain in ((torch.float32, False), (torch.float32, True), (torch.float64, True)):
+        leaves = [t.detach().to(dtype).requires_grad_(True) for t in inputs]
+        with _plain_versions() if plain else ExitStack():
+            (weights.to(dtype) * fn(*leaves)).sum().backward()
+        out.append([t.grad for t in leaves])
+    return out
+
+
+def _assert_witnessed(k, p, r, floor):
+    """The kernels' error against float64 is at most 3x the plain f32
+    version's + floor x max (sums in another order)."""
+    for gk, gp, g64 in zip(k, p, r):
+        scale = float(g64.abs().max())
+        err_k = float((gk.double() - g64).abs().max())
+        err_p = float((gp.double() - g64).abs().max())
+        assert err_k <= 3 * err_p + floor * scale, (err_k, err_p, scale)
+
+
+def test_rbf_function_gradients_on_the_card(dev):
+    g = _gen(dev, 1)
+    x = torch.sort(torch.rand(60, device=dev, generator=g)).values
+    s2 = torch.rand(3, device=dev, generator=g) + 0.5
+    ls = torch.rand(3, device=dev, generator=g) + 0.1
+    w = torch.randn(3, 60, 60, device=dev, generator=g)
+    _assert_witnessed(*_grad_pair(lambda a, s, l: kernels.rbf(a, a, s, l), (x, s2, ls), w), 1e-5)
+
+
+@pytest.mark.parametrize("batch, m", [(1, 1), (3, 13), (4, 100), (2, 200), (2, 512), (1, 1024)])
+def test_cholesky_kernel_matches_plain(dev, batch, m):
+    K = _spd(dev, batch, m, m + 1)
+    before = ck.LAUNCHES["cholesky"]
+    L = ck.cholesky_cuda(K)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["cholesky"] == before + 1
+    assert _close(L, ck.cholesky_plain(K), 1e-4)
+    assert (L.triu(1) == 0).all()
+
+
+def test_cholesky_kernel_nan_semantics_and_gradient(dev):
+    K = _spd(dev, 3, 40, 2)
+    K[1, 20, 20] = -1.0
+    L = ck.cholesky_cuda(K)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(L), torch.isnan(ck.cholesky_plain(K)))
+    lower = torch.ones(40, 40, dtype=torch.bool, device=dev).tril()
+    assert torch.isnan(L[1][lower]).all() and (L[1][~lower] == 0).all()
+    assert torch.isfinite(L[[0, 2]]).all()
+    w = torch.randn(2, 40, 40, device=dev, generator=_gen(dev, 3)).tril()
+    _assert_witnessed(*_grad_pair(lambda k: linalg.cholesky(0.5 * (k + k.mT)), (K[[0, 2]],), w), 1e-4)
+
+
+@pytest.mark.parametrize("m", [171, 200, 512, 1024])
+def test_blocked_chol_inv_matches_plain(dev, m):
+    """The blocked kernel at the path's larger sizes, one launch: (L, L^-1)
+    against the plain version, zeros above the diagonal, NaN on a non-PD
+    member (L lower triangle, all of L^-1)."""
+    K = _spd(dev, 3, m, m + 2)
+    K[1, m // 3, m // 3] = -1.0
+    before = dict(ck.LAUNCHES)
+    L, Linv = ck.chol_inv_cuda(K)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["chol_inv"] == before["chol_inv"] + 1
+    L_ref, Linv_ref = ck.chol_inv_plain(K)
+    good = [0, 2]
+    assert _close(L[good], L_ref[good], 1e-4) and _close(Linv[good], Linv_ref[good], 1e-3)
+    assert (L[good].triu(1) == 0).all() and (Linv[good].triu(1) == 0).all()
+    assert torch.equal(torch.isnan(L), torch.isnan(L_ref))
+    assert torch.isnan(Linv[1]).all() and torch.isfinite(Linv[good]).all()
+
+
+@pytest.mark.parametrize("C, N, M", [(None, 300, 2), (4, 1024, 2), (3, 37, 5), (2, 129, 16)])
+def test_kron_mv_kernel_matches_plain(dev, C, N, M):
+    g = _gen(dev, N + M)
+    lead = () if C is None else (C,)
+    B = torch.randn(lead + (M, M), device=dev, generator=g)
+    K = torch.randn(lead + (N, N), device=dev, generator=g)
+    y = torch.randn(M * N, device=dev, generator=g)  # shared by the chains
+    before = ck.LAUNCHES["kron_mv"]
+    out = ck.kron_mv_cuda(B, K, y)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["kron_mv"] == before + 1
+    ref = ck.kron_mv_plain(B.double(), K.double(), y.double())
+    assert out.shape == ref.shape and _close(out, ref, 1e-5)
+
+
+def test_kron_mv_function_gradients_on_the_card(dev):
+    g = _gen(dev, 2)
+    B = torch.randn(3, 2, 2, device=dev, generator=g)
+    K = torch.randn(3, 80, 80, device=dev, generator=g)
+    y = torch.randn(160, device=dev, generator=g)
+    w = torch.randn(3, 160, device=dev, generator=g)
+    _assert_witnessed(*_grad_pair(kron.kron_mv, (B, K, y), w), 1e-5)
+
+
+def test_svc_whitened_backward_on_the_card_matches_plain(dev):
+    """One svc_log_posterior_whitened backward (N=100, M=2: NM = 200, the
+    Cholesky-inverse; the Gibbs gram of 4 chains) by the kernels,
+    against the plain versions, both f32, and float64 on the plain
+    versions: the kernels at most 3x as far off + 1e-4 of max."""
+    x, _, _, _, Y = sim_mnts(M=2, N=100, seed=0)
+    xt, Yt = torch.as_tensor(x, device=dev), torch.as_tensor(Y, device=dev)
+    with _plain_versions():  # float64 factors (the kernels take float32), shared by all three
+        chols = ld.svc_whiten_chols(xt.double(), 3.0, 0.4, 5.0, 1.0)
+    pars = 0.3 * torch.randn(4, 100 * 4 + 1, device=dev, generator=_gen(dev, 4), dtype=torch.float64)
+    res = []
+    for dtype, plain in ((torch.float32, False), (torch.float32, True), (torch.float64, True)):
+        q = pars.to(dtype).requires_grad_(True)
+        args = (Yt.to(dtype), xt.to(dtype)) + tuple(c.to(dtype) for c in chols)
+        ck.reset_launches()
+        with _plain_versions() if plain else ExitStack():
+            lp = ld.svc_log_posterior_whitened(q, *args, mu_tilde_l=-3.0)
+            lp.sum().backward()
+        torch.cuda.synchronize()
+        if not plain:
+            assert ck.LAUNCHES["gibbs"] > 0 and ck.LAUNCHES["chol_inv"] > 0, ck.LAUNCHES
+        res.append((lp.detach(), q.grad))
+    for i in range(2):
+        scale = float(res[2][i].abs().max())
+        err_k = float((res[0][i].double() - res[2][i]).abs().max())
+        err_p = float((res[1][i].double() - res[2][i]).abs().max())
+        assert err_k <= 3 * err_p + 1e-4 * scale, (i, err_k, err_p, scale)

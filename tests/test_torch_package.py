@@ -14,13 +14,21 @@ import torch
 
 from collaborative_nonstationary_multivariate_gaussian_process_tpu import config as jconfig
 from collaborative_nonstationary_multivariate_gaussian_process_tpu.utils import data as jdata
+from collaborative_nonstationary_multivariate_gaussian_process_tpu.utils import empirical as jemp
 from collaborative_nonstationary_multivariate_gaussian_process_tpu.utils import metrics as jmetrics
+from collaborative_nonstationary_multivariate_gaussian_process_tpu.utils import (
+    posterior_analysis as jpa,
+)
 from collaborative_nonstationary_multivariate_gaussian_process_tpu.utils import sim as jsim
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch import config as tconfig
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import cnmgp as tc
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import predict as tp
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils import data as tdata
+from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils import empirical as temp
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils import metrics as tmetrics
+from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils import (
+    posterior_analysis as tpa,
+)
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils import sim as tsim
 
 torch.set_num_threads(1)
@@ -28,7 +36,7 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 PORT = "collaborative_nonstationary_multivariate_gaussian_process_tpu_torch"
 JAX_PACKAGE = "collaborative_nonstationary_multivariate_gaussian_process_tpu"
-PORT_FILES = sorted((ROOT / PORT).rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / PORT).rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "svc_init_study.py"]
 
 
 def test_importing_the_port_loads_no_jax():
@@ -36,6 +44,10 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         f"import {PORT}.models.predict, {PORT}.models.cnmgp, {PORT}.ops.cuda_kernels\n"
         f"import {PORT}.utils.sim, {PORT}.utils.data, {PORT}.utils.metrics\n"
+        f"import {PORT}.models.logdensities, {PORT}.ops.kron, {PORT}.ops.distributions\n"
+        f"import {PORT}.infer.hmc, {PORT}.infer.nuts, {PORT}.infer.map, {PORT}.infer.dsvi\n"
+        f"import {PORT}.parallel.sharded_mcmc, {PORT}.utils.empirical\n"
+        f"import {PORT}.utils.posterior_analysis\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', '{JAX_PACKAGE}'))\n"
         "assert not bad, bad\n"
     )
@@ -111,3 +123,43 @@ def test_flat_data_and_metrics_are_copies():
     np.testing.assert_array_equal(cov, covj)
     assert tmetrics.rmse(samples[0], y) == jmetrics.rmse(samples[0], y)
     assert tmetrics.ci_length_and_coverage(samples, y) == jmetrics.ci_length_and_coverage(samples, y)
+
+
+def test_empirical_estimation_is_a_copy():
+    """The port's NumPy copy of the variogram initialization (the JAX
+    package's runs the same pair loops in C++ where its library is built)."""
+    x, _, _, _, Y = tsim.sim_mnts(M=2, N=60, seed=4)
+    got, want = temp.local_estimation(x, Y, window_size=10), jemp.local_estimation(x, Y, window_size=10)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-10, err_msg=k)
+    np.testing.assert_allclose(temp.smooth(got["L_vecs"], 10), jemp.smooth(want["L_vecs"], 10), rtol=1e-12)
+    for g, w in zip(temp.semivariogram(x, Y, 1), jemp.semivariogram(x, Y, 1)):
+        np.testing.assert_allclose(g, w, rtol=1e-12)
+    for g, w in zip(temp.global_estimation(x, Y), jemp.global_estimation(x, Y)):
+        np.testing.assert_allclose(g, w, rtol=1e-12)
+    s = np.linspace(0.0, 2.0, 7)
+    np.testing.assert_array_equal(temp.variogram_gaussian(s, 1.3, 0.4), jemp.variogram_gaussian(s, 1.3, 0.4))
+
+
+def test_posterior_analysis_is_a_copy():
+    rng = np.random.default_rng(5)
+    N, M = 7, 3
+    T = M * (M + 1) // 2
+    hist = rng.standard_normal((40, N * T))
+    np.testing.assert_allclose(tpa.lvecs_to_corr(hist, N, M), jpa.lvecs_to_corr(hist, N, M), rtol=1e-12)
+    pos = np.abs(hist) + 0.1
+    np.testing.assert_allclose(tpa.lvecs_to_corr(pos, N, M, constrained=True),
+                               jpa.lvecs_to_corr(pos, N, M, constrained=True), rtol=1e-12)
+    S = rng.standard_normal((5, M, M))
+    S = S @ S.transpose(0, 2, 1) + np.eye(M)
+    np.testing.assert_array_equal(tpa.cov2cor(S), jpa.cov2cor(S))
+    np.testing.assert_array_equal(tpa.samples2quantiles(hist), jpa.samples2quantiles(hist))
+    flat = rng.standard_normal((6, 2 * N + T + 1))
+    for name, args in (("snmgp", (N, M)), ("svc", (N, M)), ("lmc", (M,))):
+        for kind in ("hist", "est"):
+            arr = flat if kind == "hist" else flat[0]
+            got = getattr(tpa, f"unpack_{kind}_{name}")(arr, *args)
+            want = getattr(jpa, f"unpack_{kind}_{name}")(arr, *args)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
