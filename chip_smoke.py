@@ -8,7 +8,7 @@ In order: builds the eight hand-written kernels from
 `collaborative_nonstationary_multivariate_gaussian_process_tpu_torch/csrc`
 with nvcc; holds each kernel against its plain PyTorch version on the card
 at the shapes of the path (the serving forwards, and the two backward
-kernels of the quadratic form against float64); serves `predict_Y`,
+kernels of the quadratic form against float64 at M = 100 and 200); serves `predict_Y`,
 `sample_Y` and `sample_FY` at the full ECoG width (D=78 outputs, M=100
 inducing points, B=512 test points) from seeded random parameters, checks
 that every kernel of each path was launched, and holds each call, and the
@@ -22,11 +22,16 @@ times training steps at ECoG and PM2.5-sub width (D=6, M=100, B=2000) with
 the kernels and with the plain versions, and profiles one step; fits
 `sim_illustration_low_freq` by `inference()` and holds the fit to the
 assertions of `tests/test_dsvi_e2e.py`; times kernels, plain versions, the
-library yardstick and the requests with CUDA events.  Then the
+library yardstick and the requests with CUDA events; trains an epoch at
+the reference's ECoG M = 200 (Z = linspace(0, 800, 200)), checks that all
+five kernels were launched, and times its steps on both routes.  Then the
 fully-Bayesian path: holds the RBF, Cholesky, Kronecker-matvec and
 Cholesky-inverse kernels against float64 runs of their plain versions at
 the path's shapes (the Cholesky-inverse at M = 200 and 1024, NaN on a
-non-PD member; RBF and Cholesky also on the path's own whitening grams);
+non-PD member; RBF and Cholesky also on the path's own whitening grams;
+the Cholesky on both of its routes at (1, 401), (2, 100), (2, 1024) and
+(4, 2048) with the routes' crossover table; the Kronecker matvec on each
+layout of K, as stored, transposed and shared by the chains);
 runs `scripts/run_mcmc_sim.py`'s default study through the port
 (sim_mnts M=2, N=100; empirical init; the whitened SVC density, dim 401;
 NUTS, 4 chains, max depth 8, diagonal mass; its 400 warmup and 400 samples
@@ -39,7 +44,8 @@ and prints samples/s, ESS/s and the host reads; profiles one leapfrog; then
 the whitened SNMGP at N=1024 (MN = 2048, the Kronecker eigen route through
 the matvec kernel): value and gradient against float64, a short HMC run,
 and `mvn_logpdf_kron` timed on both routes at MN = 1024 and 2048.  The
-second-to-last line is a JSON object with one entry per kernel; the last
+second-to-last line is a JSON object with one entry per kernel (its
+other shapes and routes under "more"); the last
 line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, when no CUDA card is present, the port
@@ -83,12 +89,18 @@ FB_HYPERS = dict(mu_tilde_l=-3.0, alpha_tilde_l=3.0, beta_tilde_l=0.4, mu_L=0.0,
                  beta_L=1.0, a=1.0, b=1.0)
 # the SNMGP check of the Kronecker eigen route: MN = 2 x 1024 > KRON_DENSE_MAX_DIM
 SNMGP_N = 1024
+# the Cholesky's shapes on the path, (batch, M): the dense NUTS metric of the
+# SVC study, the SVC and SNMGP whitening factors, the dense Kronecker
+# route's size; and the sizes at batch 2 where its two routes are compared
+CHOL_SHAPES = ((1, 401), (2, 100), (2, 1024), (4, 2048))
+CHOL_CROSSOVER_SIZES = (16, 32, 64, 100, 128, 200, 256, 401, 512, 1024)
 SNMGP_HYPERS = dict(alpha_tilde_l=3.0, beta_tilde_l=0.4, alpha_tilde_sigma=1.0, beta_tilde_sigma=0.4)
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and non-tensor FP32.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 EPS32 = float(torch.finfo(torch.float32).eps)
 D_ECOG, M_ECOG, B_ECOG = 78, 100, 512  # scripts/bench_ecog.py:46-52
+M_ECOG200 = 200  # the reference's M=200 ECoG block (scripts/ecog_per_m_study.py:11)
 D_PM, M_PM, B_PM, N_PM = 6, 100, 2000, 28_768  # bench.py:110-123
 TRAIN_STEPS = 20
 HYPERPARS = {  # tests/test_dsvi_e2e.py:32-40
@@ -122,17 +134,20 @@ def rel_to_max(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
     return err, err / max(scale, 1e-300)
 
 
-def device_ms(fn, reps: int = 20, inner: int = 1) -> float:
+def device_ms(fn, reps: int = 20, inner: int = 1, waits_ok: bool = False) -> float:
     """Median over `reps` of the device time per call of `inner` calls, by
     CUDA events.  A busy-wait kernel queued first holds the card while the
     host enqueues the calls, so the host's launch overhead is not timed.  A
     rep whose enqueue outlasted the wait is discarded and run again with a
     wait twice as long; one that outlasts SLEEP_DOUBLINGS doublings fails
-    the run."""
+    the run.  With `waits_ok` (a library call that waits on the device from
+    the host, as cuSOLVER's batched Cholesky does at M = 2048), a call whose
+    first enqueue outlasts the wait is timed back to back instead, and
+    said so."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for rep in range(reps):
         for doubling in range(SLEEP_DOUBLINGS + 1):
             wait, start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(3))
             wait.record()
@@ -147,6 +162,9 @@ def device_ms(fn, reps: int = 20, inner: int = 1) -> float:
             if host <= wait.elapsed_time(start):
                 times.append(start.elapsed_time(stop) / inner)
                 break
+            if waits_ok and rep == 0:
+                print("  (the call waits on the host: timed back to back)")
+                return back_to_back_ms(fn, reps, inner)
         else:
             check(False, f"device timing: host enqueue {host:.2f} ms outlasted the "
                   f"{wait.elapsed_time(start):.2f} ms wait")
@@ -250,14 +268,15 @@ def recording(ck, names, calls):
         yield
 
 
-def backward_kernels(ck, gen, dev):
-    """The quadform's two backward kernels at the training shapes (A (100,
-    512), lower-triangular W (3003, 100, 100), random vbar), each f32 result
+def backward_kernels(ck, gen, dev, M=M_ECOG):
+    """The quadform's two backward kernels at the training shapes (A (M,
+    512), lower-triangular W (3003, M, M), random vbar), each f32 result
     held against float64 on the same inputs (kernel at most 3x the plain
     version's error + 1e-6 of max), then timed.  Returns {name: (timing row,
     max |kernel - plain|)}."""
     G = D_ECOG * (D_ECOG - 1) // 2
-    M, N = M_ECOG, B_ECOG
+    N = B_ECOG
+    shape = f"({G},{M},{M})x({M},{N})"
     A = torch.randn(M, N, device=dev, generator=gen)
     W = 0.1 * torch.randn(G, M, M, device=dev, generator=gen).tril()
     vbar = torch.randn(G, N, device=dev, generator=gen)
@@ -282,14 +301,14 @@ def backward_kernels(ck, gen, dev):
         err_k, err_p = rel_to_max(got, ref64)[1], rel_to_max(ref, ref64)[1]
         abs_err = rel_to_max(got, ref)[0]
         check(err_k <= 3 * err_p + 1e-6 and bool(torch.isfinite(got).all()),
-              f"{name} (3003,100,100)x(100,512) vs float64, of max: kernel {err_k:.3e}, plain "
+              f"{name} {shape} vs float64, of max: kernel {err_k:.3e}, plain "
               f"{err_p:.3e}; tol 3x plain + 1e-6")
         if name == "quadform_diag_dw":
             check(torch.equal(got, got.tril()), "quadform_diag_dw writes zeros above the diagonal")
         del got, ref, ref64
         row = (device_ms(lambda: kern(A, W, vbar)), device_ms(lambda: plain(A, W, vbar)),
                device_ms(library[name]), bound_ms(n_bytes[name], ops))
-        print(f"time {name} (3003,100,100)x(100,512): kernel {row[0]:.4f} ms on the device, plain "
+        print(f"time {name} {shape}: kernel {row[0]:.4f} ms on the device, plain "
               f"{row[1]:.4f} ms, library {row[2]:.4f} ms, bound {row[3][0]:.4f} ms ({row[3][1]}), "
               f"{row[3][0] / row[0]:.1%} of bound, {ops / (row[0] * 1e-3) / 1e9:.0f} GFLOP/s")
         out[name] = (row, abs_err)
@@ -459,10 +478,6 @@ def illustration_fit(ck, td, tp, sim):
 
 def training(ck, td, tc, tp, sim, dev, gen, smi):
     """The training phases; returns the launches of one ECoG epoch."""
-    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils.data import (
-        flatten_output_lists,
-    )
-
     torch.cuda.reset_peak_memory_stats()
     X_list, Y_list = ecog_lists()
     ck.reset_launches()
@@ -479,11 +494,7 @@ def training(ck, td, tc, tp, sim, dev, gen, smi):
           f"launches {launched}")
     print(f"peak device memory of the ECoG epoch {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    flat = flatten_output_lists(X_list, Y_list)
-    data = (torch.as_tensor(flat.x, dtype=torch.float32, device=dev),
-            torch.as_tensor(flat.y, dtype=torch.float32, device=dev),
-            torch.as_tensor(flat.idx, dtype=torch.int64, device=dev),
-            torch.linspace(0.0, 800.0, M_ECOG, device=dev))
+    data = ecog_data(dev, M_ECOG)
     ecog_gradients(ck, tc, *data, gen)
     rates = {"ECoG": training_rates(ck, td, tc, "ECoG D=78 M=100 B=512", data, D_ECOG, B_ECOG)}
     one = step_closure(td, tc, *data, D_ECOG, B_ECOG)
@@ -499,6 +510,49 @@ def training(ck, td, tc, tp, sim, dev, gen, smi):
         print(f"train {cell}: kernels {k[0]:.2f} / {k[1]:.2f} steps/s, plain versions "
               f"{pl[0]:.2f} / {pl[1]:.2f} steps/s ({smi})")
     illustration_fit(ck, td, tp, sim)
+    return launched
+
+def ecog_data(dev, M):
+    """The flat ECoG training data on the card and Z = linspace(0, 800, M)."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils.data import (
+        flatten_output_lists,
+    )
+
+    flat = flatten_output_lists(*ecog_lists())
+    return (torch.as_tensor(flat.x, dtype=torch.float32, device=dev),
+            torch.as_tensor(flat.y, dtype=torch.float32, device=dev),
+            torch.as_tensor(flat.idx, dtype=torch.int64, device=dev),
+            torch.linspace(0.0, 800.0, M, device=dev))
+
+
+def ecog_m200(ck, td, tc, dev, smi):
+    """The ECoG configuration the reference runs at M = 200 inducing points
+    (D=78, B=512, Z = linspace(0, 800, 200)): one `inference()` epoch from
+    `init_params`, all five DSVI kernels launched and the losses finite,
+    then steps/s with the kernels and the plain versions in turns.  Returns
+    the epoch's launches."""
+    X_list, Y_list = ecog_lists()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    res = td.inference(X_list, Y_list, np.linspace(0.0, 800.0, M_ECOG200), batch_size=B_ECOG,
+                       dim_outputs=D_ECOG, lr=0.005, itnum=1, seed=0, show_ELBO=False)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    launched = dict(ck.LAUNCHES)
+    losses = np.asarray(res.loss_list)
+    check(all(launched[k] > 0 for k in TRAIN_KERNELS) and bool(np.all(np.isfinite(losses))),
+          f"ECoG M=200 epoch by inference() (D=78, N=62,400, M=200, B=512, {len(losses)} steps, "
+          f"{epoch_s:.2f} s with set-up): finite losses {losses[0]:.4e} .. {losses[-1]:.4e}, "
+          f"launches {launched}")
+    print(f"peak device memory of the ECoG M=200 epoch "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    rates = training_rates(ck, td, tc, "ECoG D=78 M=200 B=512", ecog_data(dev, M_ECOG200),
+                           D_ECOG, B_ECOG)
+    k = [rate for _, rate in rates["kernels"]]
+    pl = [rate for _, rate in rates["plain"]]
+    print(f"train ECoG M=200: kernels {k[0]:.2f} / {k[1]:.2f} steps/s, plain versions "
+          f"{pl[0]:.2f} / {pl[1]:.2f} steps/s ({smi})")
     return launched
 
 # ---------------------------------------------------------------------------
@@ -606,6 +660,116 @@ def fb_kernel_checks(ck, gen, dev, svc_K):
                        bound_ms(4 * (4 * N * N + 4 * 4 + 2 * N + 4 * 2 * N),
                                 4 * (2 * N * N * 2 + 2 * N * 2 * 2))), err)
     return out
+
+
+def _spd(gen, dev, b, m):
+    """b random SPD matrices of size m, condition ~1e2-1e3."""
+    A = torch.randn(b, m, m, device=dev, generator=gen)
+    return A @ A.mT / m + 0.05 * torch.eye(m, device=dev)
+
+
+def timing_entry(what, kern, plain, lib, bound, inner=3):
+    """Device times of a kernel call, its plain version and the library
+    yardstick (None: no one call computes it), with the bound; printed and
+    returned as a JSON-ready dict."""
+    k_ms = device_ms(kern, inner=inner)
+    k_b2b = back_to_back_ms(kern, inner=inner)
+    p_ms = device_ms(plain, inner=inner, waits_ok=True)
+    l_ms = None if lib is None else device_ms(lib, inner=inner, waits_ok=True)
+    print(f"time {what}: kernel {k_ms:.4f} ms on the device ({k_b2b:.4f} ms a call back to back, "
+          f"host launch included), plain {p_ms:.4f} ms, library "
+          f"{'n/a' if l_ms is None else f'{l_ms:.4f} ms'}, bound {bound[0]:.4f} ms ({bound[1]}), "
+          f"{bound[0] / k_ms:.1%} of bound", flush=True)
+    return {"at": what, "ms": k_ms, "back_to_back_ms": k_b2b, "plain_ms": p_ms, "library_ms": l_ms,
+            "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def cholesky_routes(ck, gen, dev, smi):
+    """csrc/cholesky.cu on each of its routes at the path's shapes (the
+    dense NUTS metric (1, 401, 401), the SVC whitening (2, 100, 100), the
+    SNMGP whitening (2, 1024, 1024), the dense route's (4, 2048, 2048)):
+    against float64 runs of the plain version (3x the plain f32 error +
+    1e-6 of max), |L L^T - K| / |K| <= M eps, and a non-PD member NaN in its
+    lower triangle, zero above, the others finite; then timed.  Then both
+    routes at batch 2 from M = 16 to 1024, where the default route's
+    crossover lies.  Returns the timing entries."""
+    entries = []
+    for b, m in CHOL_SHAPES:
+        K = _spd(gen, dev, b, m)
+        Kbad = K.clone()
+        Kbad[-1, m // 3, m // 3] = -1.0
+        Lp, L64 = ck.cholesky_plain(K), ck.cholesky_plain(K.double())
+        lower = torch.ones(m, m, dtype=torch.bool, device=dev).tril()
+        for route in ck.CHOLESKY_ROUTES:
+            L = ck.cholesky_cuda(K, route)
+            torch.cuda.synchronize()
+            witnessed(f"cholesky {route}", L, Lp, L64, 1e-6, f"({b}, {m}, {m})")
+            back = rel_to_max(L.double() @ L.double().mT, K.double())[1]
+            check(back <= m * EPS32 and torch.equal(L, L.tril()),
+                  f"cholesky {route} ({b}, {m}, {m}): |L L^T - K|/|K| {back:.3e}, tol M eps; "
+                  f"zeros above the diagonal")
+            Lb = ck.cholesky_cuda(Kbad, route)
+            torch.cuda.synchronize()
+            check(bool(torch.isnan(Lb[-1][lower]).all() and (Lb[-1][~lower] == 0).all()
+                       and torch.isfinite(Lb[:-1]).all()),
+                  f"cholesky {route} ({b}, {m}, {m}): the non-PD member is NaN in its lower "
+                  f"triangle, zero above; the others finite")
+            bound = bound_ms(4 * b * (m * (m + 1) // 2 + m * m), b * m**3 / 3)
+            entries.append(timing_entry(
+                f"cholesky {route} ({b},{m},{m})", lambda: ck.cholesky_cuda(K, route),
+                lambda: ck.cholesky_plain(K), lambda: torch.linalg.cholesky_ex(K), bound))
+        del K, Kbad, Lp, L64
+    print(f"cholesky crossover, batch 2, device ms (host launch included) ({smi}):")
+    for m in CHOL_CROSSOVER_SIZES:
+        K = _spd(gen, dev, 2, m)
+        row = {r: (device_ms(lambda: ck.cholesky_cuda(K, r), inner=3),
+                   back_to_back_ms(lambda: ck.cholesky_cuda(K, r), inner=3))
+               for r in ck.CHOLESKY_ROUTES}
+        print(f"  M={m}: " + ", ".join(f"{r} {t[0]:.4f} ({t[1]:.4f})" for r, t in row.items())
+              + f"; default {ck.cholesky_route(m)}", flush=True)
+    print("profile of one cholesky call (2, 1024, 1024) on the multi-CTA route:")
+    profile_breakdown(lambda: ck.cholesky_cuda(K, "multi_cta"))
+    return entries
+
+
+def kron_layouts(ck, gen, dev, smi):
+    """csrc/kron_mv.cu on each layout of K at the SNMGP eigen route's shape
+    (4 chains, N = 1024, M = 2): K as stored, a transposed view, one K
+    shared by the chains, and the eigenvectors' transposes as
+    `mvn_logpdf_kron` passes them (and the backward's K^T); each against
+    float64 (3x the plain f32 error + 1e-6 of max), read without a copy, and
+    timed beside `K @ Y @ B.mT` on the same views.  Returns the timing
+    entries."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops.kron import eigh
+
+    N, C = SNMGP_N, FB_CHAINS
+    B = torch.randn(C, 2, 2, device=dev, generator=gen)
+    Kk = torch.randn(C, N, N, device=dev, generator=gen)
+    y = torch.randn(2 * N, device=dev, generator=gen)
+    _, vK = eigh(_spd(gen, dev, C, N))
+    _, vB = eigh(B @ B.mT + 0.5 * torch.eye(2, device=dev))
+    cases = {
+        f"rows ({C},{N},{N})": (B, Kk),
+        f"transposed view ({C},{N},{N})": (B, Kk.mT),
+        f"chain-shared ({N},{N}) x {C} chains": (B, Kk[0]),
+        f"eigenvectors^T ({C},{N},{N}), the path's call": (vB.mT, vK.mT),
+        f"eigenvectors ({C},{N},{N}), the backward's K^T": (vB, vK),
+    }
+    Y = y.reshape(2, N).T
+    entries = []
+    for what, (Bm, K) in cases.items():
+        got = ck.kron_mv_cuda(Bm, K, y)
+        torch.cuda.synchronize()
+        witnessed("kron_mv", got, ck.kron_mv_plain(Bm, K, y),
+                  ck.kron_mv_plain(Bm.double(), K.double(), y.double()), 1e-6, what)
+        Kc = ck._kron_mv_operands(Bm, K, y)[0]
+        check(Kc.data_ptr() == K.data_ptr(), f"kron_mv {what}: K read in place, not copied")
+        k_bytes = 4 * K.numel()
+        bound = bound_ms(k_bytes + 4 * (Bm.numel() + 2 * N + C * 2 * N), 2 * C * N * N * 2)
+        entries.append(timing_entry(f"kron_mv {what}", lambda: ck.kron_mv_cuda(Bm, K, y),
+                                    lambda: ck.kron_mv_plain(Bm, K, y), lambda: K @ Y @ Bm.mT,
+                                    bound, inner=10))
+    return entries
 
 
 def whitening_checks(ck, calls, what):
@@ -814,6 +978,10 @@ def fb_svc_nuts(ck, dev, smi):
     q = samples[:, -1].contiguous()
     print(f"time of one value_and_grad of the SVC density (4 chains): "
           f"{host_ms(lambda: value_and_grad(lp, q)):.3f} ms host clock, median of 20 ({smi})")
+    ck.reset_launches()
+    value_and_grad(lp, q)
+    torch.cuda.synchronize()
+    print(f"launches of one value_and_grad of the SVC density (4 chains): {dict(ck.LAUNCHES)}")
     print("profile of one value_and_grad (a leapfrog's gradient), 4 chains:")
     profile_breakdown(lambda: value_and_grad(lp, q))
     with plain_versions(ck):
@@ -1020,6 +1188,9 @@ def main() -> int:
     # sums of 100 products, then of 100 squares, in another order
     check(qf_rel <= 1e-4, f"quadform_diag (8,3003,512): max err {qf_err:.3e} ({qf_rel:.3e} of max|V|), tol 1e-4")
     backward = backward_kernels(ck, gen, dev)
+    for name in ("quadform_diag_dw", "quadform_diag_da"):
+        check(ck.max_m(name) >= 512, f"max_m({name!r}) = {ck.max_m(name)} >= 512")
+    backward200 = backward_kernels(ck, gen, dev, M_ECOG200)
 
     # ----------------------------------------- serving at full ECoG width
     params = cnmgp.init_params(torch.Generator(device=dev).manual_seed(0), D_ECOG, M_ECOG,
@@ -1161,14 +1332,17 @@ def main() -> int:
     # ------------------------------------------------------------- training
     trained = training(ck, dsvi, cnmgp, predict, sim, dev, gen, smi)
     print(f"launches in one ECoG training epoch: {trained}")
+    trained200 = ecog_m200(ck, dsvi, cnmgp, dev, smi)
+    print(f"launches in one ECoG M=200 training epoch: {trained200}")
     for k in ck.KERNELS:
-        launches[k] += trained[k]
+        launches[k] += trained[k] + trained200[k]
 
     # ------------------------------------------------------ fully Bayesian
     t0 = time.perf_counter()
     fb_launched, fb_metrics, svc_K = fb_svc_nuts(ck, dev, smi)
     print(f"SVC NUTS phase {time.perf_counter() - t0:.1f} s; launches {fb_launched}")
     fb = fb_kernel_checks(ck, gen, dev, svc_K)
+    more = {"cholesky": cholesky_routes(ck, gen, dev, smi), "kron_mv": kron_layouts(ck, gen, dev, smi)}
     t0 = time.perf_counter()
     sn_launched = fb_snmgp(ck, dev, smi)
     print(f"SNMGP phase {time.perf_counter() - t0:.1f} s; launches {sn_launched}")
@@ -1194,14 +1368,18 @@ def main() -> int:
         ("quadform_diag", f"{tpu}:577", qf_err),
     ]
     for n, line in (("quadform_diag_dw", 648), ("quadform_diag_da", 667)):
-        rows.append((n, f"{tpu}:{line}", backward[n][1]))
+        rows.append((n, f"{tpu}:{line}", max(backward[n][1], backward200[n][1])))
         times[n] = backward[n][0]
+        k_ms, p_ms, l_ms, (b_ms, b_by) = backward200[n][0]
+        more[n] = [{"at": f"M={M_ECOG200}", "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                    "bound_ms": b_ms, "bound_by": b_by}]
     kernels = []
     for n, r, e in rows:
         k_ms, p_ms, l_ms, (b_ms, b_by) = times[n]
         kernels.append({"name": n, "route": "cuda", "source": f"{src}{n}.cu", "replaces": r,
                         "launches": launches[n], "max_abs_err": e, "ms": k_ms, "plain_ms": p_ms,
-                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
+                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
+                        "more": more.get(n, [])})
     print(json.dumps({"kernels": kernels}))
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)

@@ -19,207 +19,256 @@
 //
 // Bound on the H100: FP32 operations.  Per (g, n), M (M + 1) / 2 FMAs to
 // recompute C over the triangle and M (M + 1) / 2 for dW's triangle.  At ECoG
-// width (G = 3003 + 78 + 78 over the three calls of one step, M = 100,
-// N = 512) that is 32.7 GFLOP, 0.49 ms at the 67 TFLOP/s non-tensor FP32
-// rate, against ~64 MB of W's triangle read and 126 MB of dW written, 57 us
-// at 3.35 TB/s.  The library route (two einsums and a product) writes and
-// reads the (G, N, M) intermediates C and E, ~650 MB each.
+// width (G = 3003, M = 100, N = 512) that is 15.5 GFLOP, 0.23 ms at the
+// 67 TFLOP/s non-tensor FP32 rate, against ~60 MB of W's triangle read and
+// 120 MB of dW written, 54 us at 3.35 TB/s.  The library route (two einsums)
+// writes and reads the (G, N, M) intermediates C and E.
 //
-// Design: one block per (group g, draw s); nothing crosses blocks, so there
-// are no atomics and the result is deterministic.  W_g's lower triangle is
-// staged once in shared memory (M x M, 40 KB at M = 100).  Then per N tile of
-// 64 columns: the A tile is staged twice, as (M, 64) for the C product and as
-// (64, M) for the dW product; C = A^T W_g is recomputed in registers exactly
-// as the forward does (a thread owns 4 columns n x 8 entries k and starts its
-// row loop at its own k-block), scaled by 2 vbar[g, n] into E in shared
-// memory; then each thread adds sum_n A[m, n] E[n, k] into its register tile
-// of dW (4 rows m x 8 entries k).  Only the 8-wide k-blocks that meet the
-// lower triangle are owned, 169 tiles at M = 100.  dW leaves registers once,
-// at the end.  W is read in its (G, M, M) layout: the TPU kernel's flattened
-// WT operand and 0/1 selector matmuls existed only because Mosaic could not
-// relayout inside a kernel.  Arithmetic is FP32 FMA, no tensor cores.
+// Design: k-panels.  Column k of dW needs only column k of C, and both
+// products of a panel of KP = 32 columns [k0, k0 + 32) read the same slab,
+// W_g[k0:M, k0:k0+32] (W is lower-triangular), and rows k0:M of A.  So a
+// block takes one (group g, panel, draw s): shared memory holds the slab
+// (M x 32) and an A tile (M x TN columns n), O(M KP) and not O(M^2), which
+// takes M up to ~700 (the limit is `quadform_diag_dw_max_m`).  TN is 64
+// where that block fits the opt-in shared memory and 512 threads (M up to
+// ~440), else 32.  Panels of dW are independent: no reduction crosses
+// blocks, no atomics, and the result is deterministic.  Per N tile:
+//   (a) C[n, panel] = sum_{m >= k0} A[m, n] W[m, panel]: TN owners of a
+//       4 (n) x 8 (k) register tile, the rows split into one contiguous chunk
+//       per owner group; each group's partial tile goes to shared memory and
+//       the chunks are added in a fixed order, scaled by 2 vbar[g, n] into E;
+//   (b) each thread adds sum_n A[m, n] E[n, k] into its 8 (m) x 8 (k)
+//       register tile of the panel's dW (rows k0:M).
+// dW leaves registers once, at the end.  The thread count follows M (one
+// 8 x 8 tile per thread for panel 0, at most 512).  A and the slab are
+// staged with 16-byte loads where N (and M) are multiples of 4.  W is read in its
+// (G, M, M) layout: the TPU kernel's flattened WT operand and 0/1 selector
+// matmuls existed only because Mosaic could not relayout inside a kernel.
+// Arithmetic is FP32 FMA, no tensor cores.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTileN = 64;                    // columns n per tile
-constexpr int kMicroN = 4;                    // C: columns n per thread
-constexpr int kMicroK = 8;                    // C and dW: entries k per thread
-constexpr int kMicroM = 4;                    // dW: rows m per thread
-constexpr int kThreadsN = kTileN / kMicroN;   // threads along n in the C product
+constexpr int kKP = 32;            // columns k per panel
+constexpr int kMaxThreads = 512;
 
-__host__ __device__ inline int k_chunks(int m) { return (m + kMicroK - 1) / kMicroK; }
-__host__ __device__ inline int m_chunks(int m) { return (m + kMicroM - 1) / kMicroM; }
+__host__ __device__ inline int panels(int m) { return (m + kKP - 1) / kKP; }
+__host__ __device__ inline int m_blocks(int m) { return (m + 7) / 8; }
 
-// k-blocks of dW row block mb (rows 4 mb .. 4 mb + 3) that meet the lower triangle.
-__host__ __device__ inline int row_k_blocks(int mb, int kc) {
-  const int last = (kMicroM * mb + kMicroM - 1) / kMicroK;
-  return last + 1 < kc ? last + 1 : kc;
+// Threads of a block: one 8 x 8 dW tile each for panel 0 (4 k-blocks x
+// ceil(M / 8) row blocks), a multiple of TN (the owners of the C tile).
+__host__ __device__ inline int block_threads(int m, int tn) {
+  const int t = (4 * m_blocks(m) + tn - 1) / tn * tn;
+  return t < tn ? tn : t;
 }
 
-__host__ __device__ inline int lower_tiles(int m) {
-  int t = 0;
-  for (int mb = 0; mb < m_chunks(m); ++mb) t += row_k_blocks(mb, k_chunks(m));
-  return t;
+// Dynamic shared memory one block needs for inducing size m: the slab of
+// panel 0, the E tile, the partial C tiles and the A tile (rows padded to
+// the 8-row tiles of (b)).
+size_t smem_bytes(int m, int tn) {
+  const size_t groups = block_threads(m, tn) / tn;
+  return ((size_t)m * kKP + (size_t)tn * kKP * (1 + groups) + (size_t)8 * m_blocks(m) * (tn + 1)) *
+         sizeof(float);
 }
 
-int block_threads(int m) {
-  const int c = kThreadsN * k_chunks(m);
-  const int w = lower_tiles(m);
-  return c > w ? c : w;
+// The slab W[k0 + r, k0 + kk] (kk <= r) of panel k0 into Ws (rows x kKP),
+// zero above the diagonal and beyond column m.
+__device__ inline void stage_slab(float* Ws, const float* Wg, int m, int k0, int rows) {
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  if (m % 4 == 0) {
+    for (int i = tid; i < rows * kKP / 4; i += nthreads) {
+      const int r = i / (kKP / 4), kk = 4 * (i % (kKP / 4));
+      float4 w = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (kk <= r && k0 + kk < m) w = *reinterpret_cast<const float4*>(Wg + (size_t)(k0 + r) * m + k0 + kk);
+      Ws[r * kKP + kk] = w.x;
+      Ws[r * kKP + kk + 1] = kk + 1 <= r ? w.y : 0.0f;
+      Ws[r * kKP + kk + 2] = kk + 2 <= r ? w.z : 0.0f;
+      Ws[r * kKP + kk + 3] = kk + 3 <= r ? w.w : 0.0f;
+    }
+  } else {
+    for (int i = tid; i < rows * kKP; i += nthreads) {
+      const int r = i / kKP, kk = i % kKP;
+      Ws[i] = (kk <= r && k0 + kk < m) ? Wg[(size_t)(k0 + r) * m + k0 + kk] : 0.0f;
+    }
+  }
 }
 
-__global__ void quadform_diag_dw_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                                        const float* __restrict__ vbar, float* __restrict__ dW,
-                                        int m, int n, int g) {
+template <int TN>
+__global__ void __launch_bounds__(kMaxThreads)
+    quadform_diag_dw_kernel(const float* __restrict__ A, const float* __restrict__ W,
+                            const float* __restrict__ vbar, float* __restrict__ dW, int m, int n,
+                            int g) {
+  constexpr int kLdA = TN + 1;  // row stride of the A tile
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int kc = k_chunks(m);
-  const int mp = kc * kMicroK;
-  float* Ws = smem;              // m x mp: W_g, zero above the diagonal and beyond column m
-  float* As = Ws + m * mp;       // m x kTileN: A tile, zero beyond column n
-  float* At = As + m * kTileN;   // kTileN x mp: the same tile transposed, zero beyond m
-  float* Es = At + kTileN * mp;  // kTileN x mp: E tile
+  const int nthreads = blockDim.x;
+  const int groups = nthreads / TN;
+  float* Ws = smem;                   // m x kKP: the slab W[k0 + r, k0 + kk], zero above the diagonal
+  float* Es = Ws + m * kKP;           // TN x kKP: the E tile
+  float* Cb = Es + TN * kKP;          // groups x TN x kKP: partial C tiles
+  float* As = Cb + groups * TN * kKP;  // 8 m_blocks(m) x kLdA: rows k0.. of the A tile
 
   const int gi = blockIdx.x;
-  const int s = blockIdx.y;
+  const int k0 = blockIdx.y * kKP;
+  const int s = blockIdx.z;
+  const int rows = m - k0;            // slab rows: m = k0 + r
+  const int arows = 8 * m_blocks(rows);
   const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
   const float* Wg = W + ((size_t)s * g + gi) * m * m;
   const float* Ab = A + (size_t)s * m * n;
   const float* vg = vbar + ((size_t)s * g + gi) * n;
   float* dWg = dW + ((size_t)s * g + gi) * m * m;
 
-  // C role: 4 columns n x 8 entries k of the C tile
-  const int tn = tid % kThreadsN;
-  const int tk = tid / kThreadsN;
-  const bool c_role = tk < kc;
-  // dW role: one 4 x 8 tile of dW's lower triangle, (row block mb, k-block kb)
-  int mb = -1, kb = 0;
-  for (int b = 0, t = tid; b < m_chunks(m); ++b) {
-    const int cnt = row_k_blocks(b, kc);
-    if (t < cnt) {
-      mb = b;
-      kb = t;
-      break;
-    }
-    t -= cnt;
-  }
-  const bool w_role = mb >= 0;
-  const int m0 = mb * kMicroM;
-  const int k0 = kb * kMicroK;
+  // (a) role: owner o (4 columns n x 8 entries k) of group q's row chunk
+  const int o = tid % TN, q = tid / TN;
+  const int tn = o % (TN / 4), tk = o / (TN / 4);
+  const int chunk = (rows + groups - 1) / groups;
+  const int r_lo = max(q * chunk, tk * 8);  // W[k0 + r, k0 + k] = 0 for r < k
+  const int r_hi = min(rows, (q + 1) * chunk);
+  // (b) role: the 8 x 8 dW tile (rows 8 mb.., entries 8 kb..) of the slab
+  const int kb = tid % 4, mb = tid / 4;
+  const bool w_role = mb < m_blocks(rows) && 8 * mb + 7 >= 8 * kb;  // meets the triangle
 
-  for (int i = tid; i < m * mp; i += nthreads) {
-    const int r = i / mp;
-    const int c = i % mp;
-    Ws[i] = c <= r ? Wg[r * m + c] : 0.0f;  // lower triangle; c <= r < m
-  }
-  for (int i = tid; i < kTileN * mp; i += nthreads) At[i] = 0.0f;  // columns >= m stay zero
+  stage_slab(Ws, Wg, m, k0, rows);
 
-  float dacc[kMicroM][kMicroK];
+  float dacc[8][8];
 #pragma unroll
-  for (int i = 0; i < kMicroM; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < kMicroK; ++j) dacc[i][j] = 0.0f;
+    for (int j = 0; j < 8; ++j) dacc[i][j] = 0.0f;
 
-  for (int n0 = 0; n0 < n; n0 += kTileN) {
-    __syncthreads();  // W staged (first tile) / previous tile's As, At and Es consumed
-    for (int i = tid; i < m * kTileN; i += nthreads) {
-      const int r = i / kTileN;
-      const int c = i % kTileN;
-      const float a = n0 + c < n ? Ab[(size_t)r * n + n0 + c] : 0.0f;
-      As[i] = a;
-      At[c * mp + r] = a;
-    }
-    __syncthreads();
-
-    if (c_role) {
-      float acc[kMicroN][kMicroK];
-#pragma unroll
-      for (int i = 0; i < kMicroN; ++i)
-#pragma unroll
-        for (int j = 0; j < kMicroK; ++j) acc[i][j] = 0.0f;
-      const float* a_col = As + tn * kMicroN;
-      const float* w_col = Ws + tk * kMicroK;
-#pragma unroll 4
-      for (int r = tk * kMicroK; r < m; ++r) {  // W[r, k] = 0 for r < k
-        const float4 a = *reinterpret_cast<const float4*>(a_col + r * kTileN);
-        const float4 w0 = *reinterpret_cast<const float4*>(w_col + r * mp);
-        const float4 w1 = *reinterpret_cast<const float4*>(w_col + r * mp + 4);
-        const float av[kMicroN] = {a.x, a.y, a.z, a.w};
-        const float wv[kMicroK] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-        for (int i = 0; i < kMicroN; ++i)
-#pragma unroll
-          for (int j = 0; j < kMicroK; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+  for (int n0 = 0; n0 < n; n0 += TN) {
+    __syncthreads();  // slab staged (first tile) / previous tile's As and Es consumed
+    if (n % 4 == 0) {  // rows k0.. of A, zero beyond row m and column n
+      for (int i = tid; i < arows * TN / 4; i += nthreads) {
+        const int r = i / (TN / 4), c = 4 * (i % (TN / 4));
+        float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (r < rows && n0 + c < n) a = *reinterpret_cast<const float4*>(Ab + (size_t)(k0 + r) * n + n0 + c);
+        float* d = As + r * kLdA + c;
+        d[0] = a.x, d[1] = a.y, d[2] = a.z, d[3] = a.w;
       }
-#pragma unroll
-      for (int i = 0; i < kMicroN; ++i) {
-        const int col = n0 + tn * kMicroN + i;
-        const float sc = col < n ? 2.0f * vg[col] : 0.0f;
-        float4* e = reinterpret_cast<float4*>(Es + (tn * kMicroN + i) * mp + tk * kMicroK);
-        e[0] = make_float4(sc * acc[i][0], sc * acc[i][1], sc * acc[i][2], sc * acc[i][3]);
-        e[1] = make_float4(sc * acc[i][4], sc * acc[i][5], sc * acc[i][6], sc * acc[i][7]);
+    } else {
+      for (int i = tid; i < arows * TN; i += nthreads) {
+        const int r = i / TN, c = i % TN;
+        As[r * kLdA + c] = r < rows && n0 + c < n ? Ab[(size_t)(k0 + r) * n + n0 + c] : 0.0f;
       }
     }
     __syncthreads();
 
-    if (w_role) {
-      const int cols = n - n0 < kTileN ? n - n0 : kTileN;
-#pragma unroll 4
+    {  // (a) this group's chunk of C
+      float acc[4][8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+      const float* a_col = As + tn * 4;
+      const float* w_col = Ws + tk * 8;
+#pragma unroll 2
+      for (int r = r_lo; r < r_hi; ++r) {
+        const float av[4] = {a_col[r * kLdA], a_col[r * kLdA + 1], a_col[r * kLdA + 2],
+                             a_col[r * kLdA + 3]};
+        const float4 w0 = *reinterpret_cast<const float4*>(w_col + r * kKP);
+        const float4 w1 = *reinterpret_cast<const float4*>(w_col + r * kKP + 4);
+        const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+      }
+      float* cb = Cb + q * TN * kKP;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float4* e = reinterpret_cast<float4*>(cb + (tn * 4 + i) * kKP + tk * 8);
+        e[0] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        e[1] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+      }
+    }
+    __syncthreads();
+    // the chunks added in a fixed order, scaled into E
+    for (int e = tid; e < TN * kKP; e += nthreads) {
+      const int c = n0 + e / kKP;
+      float v = 0.0f;
+      for (int p = 0; p < groups; ++p) v += Cb[p * TN * kKP + e];
+      Es[e] = c < n ? 2.0f * vg[c] * v : 0.0f;
+    }
+    __syncthreads();
+
+    if (w_role) {  // (b)
+      const int cols = min(TN, n - n0);
+      const float* a_row = As + 8 * mb * kLdA;
+#pragma unroll 2
       for (int c = 0; c < cols; ++c) {
-        const float4 a = *reinterpret_cast<const float4*>(At + c * mp + m0);
-        const float4 e0 = *reinterpret_cast<const float4*>(Es + c * mp + k0);
-        const float4 e1 = *reinterpret_cast<const float4*>(Es + c * mp + k0 + 4);
-        const float av[kMicroM] = {a.x, a.y, a.z, a.w};
-        const float ev[kMicroK] = {e0.x, e0.y, e0.z, e0.w, e1.x, e1.y, e1.z, e1.w};
+        float av[8];
 #pragma unroll
-        for (int i = 0; i < kMicroM; ++i)
+        for (int i = 0; i < 8; ++i) av[i] = a_row[i * kLdA + c];
+        const float4 e0 = *reinterpret_cast<const float4*>(Es + c * kKP + kb * 8);
+        const float4 e1 = *reinterpret_cast<const float4*>(Es + c * kKP + kb * 8 + 4);
+        const float ev[8] = {e0.x, e0.y, e0.z, e0.w, e1.x, e1.y, e1.z, e1.w};
 #pragma unroll
-          for (int j = 0; j < kMicroK; ++j) dacc[i][j] = fmaf(av[i], ev[j], dacc[i][j]);
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) dacc[i][j] = fmaf(av[i], ev[j], dacc[i][j]);
       }
     }
   }
 
   if (w_role) {
 #pragma unroll
-    for (int i = 0; i < kMicroM; ++i) {
-      const int r = m0 + i;
+    for (int i = 0; i < 8; ++i) {
+      const int r = 8 * mb + i;
 #pragma unroll
-      for (int j = 0; j < kMicroK; ++j) {
-        const int k = k0 + j;
-        if (r < m && k <= r) dWg[r * m + k] = dacc[i][j];
+      for (int j = 0; j < 8; ++j) {
+        const int kk = 8 * kb + j;
+        if (r < rows && k0 + kk < m && kk <= r) dWg[(size_t)(k0 + r) * m + k0 + kk] = dacc[i][j];
       }
     }
   }
-  for (int i = tid; i < m * m; i += nthreads) {
-    if (i % m > i / m) dWg[i] = 0.0f;  // above the diagonal
+  // zeros above the diagonal in this panel's columns
+  const int zrows = min(m, k0 + kKP);
+  for (int i = tid; i < zrows * kKP; i += nthreads) {
+    const int r = i / kKP, k = k0 + i % kKP;
+    if (k < m && k > r) dWg[(size_t)r * m + k] = 0.0f;
   }
 }
 
-// Dynamic shared memory one block needs for inducing size m: W_g, the A tile
-// in both layouts and the E tile.
-size_t smem_bytes(int m) {
-  const int mp = k_chunks(m) * kMicroK;
-  return ((size_t)m * mp + (size_t)m * kTileN + 2 * (size_t)kTileN * mp) * sizeof(float);
+// Whether the TN-wide kernel takes inducing size m on the current device.
+template <int TN>
+bool fits(int m, int optin) {
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, quadform_diag_dw_kernel<TN>) != cudaSuccess) return false;
+  return smem_bytes(m, TN) + attr.sharedSizeBytes <= (size_t)optin &&
+         block_threads(m, TN) <= attr.maxThreadsPerBlock;
+}
+
+int optin_bytes() {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return -1;
+  return optin;
+}
+
+template <int TN>
+int launch(const float* A, const float* W, const float* vbar, float* dW, int s, int g, int m, int n,
+           cudaStream_t st) {
+  const size_t smem = smem_bytes(m, TN);
+  cudaError_t err = cudaFuncSetAttribute(quadform_diag_dw_kernel<TN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  quadform_diag_dw_kernel<TN><<<dim3(g, panels(m), s), block_threads(m, TN), smem, st>>>(A, W, vbar,
+                                                                                     dW, m, n, g);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Largest inducing size m whose block fits the current device's opt-in shared
-// memory and thread limit, or -1 if the device cannot be queried.
+// memory and thread limit (with TN = 32), or -1 if the device cannot be queried.
 extern "C" int quadform_diag_dw_max_m() {
-  int dev = 0, optin = 0, max_threads = 0;
-  cudaFuncAttributes attr;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess ||
-      cudaFuncGetAttributes(&attr, quadform_diag_dw_kernel) != cudaSuccess)
-    return -1;
-  max_threads = attr.maxThreadsPerBlock;
+  const int optin = optin_bytes();
+  if (optin < 0) return -1;
   int m = 0;
-  while (smem_bytes(m + 1) + attr.sharedSizeBytes <= (size_t)optin &&
-         block_threads(m + 1) <= max_threads)
-    ++m;
+  while (fits<32>(m + 1, optin)) ++m;
   return m;
 }
 
@@ -228,12 +277,10 @@ extern "C" int quadform_diag_dw_max_m() {
 // cudaGetLastError() (or the error of the opt-in).
 extern "C" int quadform_diag_dw_launch(const float* A, const float* W, const float* vbar,
                                        float* dW, int s, int g, int m, int n, void* stream) {
-  const size_t smem = smem_bytes(m);
-  cudaError_t err = cudaFuncSetAttribute(quadform_diag_dw_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(g, s);
-  quadform_diag_dw_kernel<<<grid, block_threads(m), smem, (cudaStream_t)stream>>>(A, W, vbar, dW,
-                                                                                  m, n, g);
-  return (int)cudaGetLastError();
+  const int optin = optin_bytes();
+  if (optin < 0) return (int)cudaErrorInvalidDevice;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (fits<64>(m, optin)) return launch<64>(A, W, vbar, dW, s, g, m, n, st);
+  if (fits<32>(m, optin)) return launch<32>(A, W, vbar, dW, s, g, m, n, st);
+  return (int)cudaErrorInvalidValue;
 }

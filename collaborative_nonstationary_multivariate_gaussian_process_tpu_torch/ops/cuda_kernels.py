@@ -49,6 +49,9 @@ __all__ = [
     "kron_mv_plain",
     "cholesky_cuda",
     "cholesky_plain",
+    "cholesky_route",
+    "CHOLESKY_ROUTES",
+    "CHOLESKY_CROSSOVER_M",
     "chol_inv_cuda",
     "chol_inv_plain",
     "cholesky_nan",
@@ -66,6 +69,14 @@ KERNELS = (
     "quadform_diag_dw", "quadform_diag_da",
 )
 
+# The routes of `csrc/cholesky.cu` (its `route` argument): one block per
+# matrix, or each matrix spread over many CTAs.
+CHOLESKY_ROUTES = {"one_block": 0, "multi_cta": 1}
+# Smallest M that takes the multi-CTA route by default: on the H100 at batch
+# 2 the two routes tie at M = 100 and the multi-CTA one is faster from
+# M = 128 on (chip_smoke.py's crossover table; PERF.md).
+CHOLESKY_CROSSOVER_M = 128
+
 # Launches of each kernel since the last `reset_launches()`.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -75,16 +86,17 @@ _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _ARGTYPES = {
     # x1, x2, l1, l2, scale2, out, s, n, m, d, stream
     "gibbs": [_P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _P],
     # x1, x2, scale2, ls, out, s, n, m, stream
     "rbf": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # K, B, y, out, c, n1, n2, m1, m2, stream
-    "kron_mv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # a, l_out, batch, m, stream
-    "cholesky": [_P, _P, _I, _I, _P],
+    # K, B, y, out, c, n1, n2, m1, m2, K's strides (chain, row, column), B's
+    # and y's chain strides, stream
+    "kron_mv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _P],
+    # a, l_out, flags, diag, batch, m, route, stream
+    "cholesky": [_P, _P, _P, _P, _I, _I, _I, _P],
     # a, l_out, linv_out, batch, m, stream
     "chol_inv": [_P, _P, _P, _I, _I, _P],
     # A, W, V, s, g, m, n, stream
@@ -163,7 +175,9 @@ def max_m(name: str, device=None) -> int:
     """Largest M that kernel `name` (any of `KERNELS` but "gibbs" and
     "rbf") takes on `device`: the layout of its shared memory
     (`smem_bytes` in its source) meets the card's opt-in limit; for
-    "kron_mv", the largest task dimension it keeps in registers."""
+    "kron_mv", the largest task dimension it keeps in registers; for
+    "cholesky", its multi-CTA route's limit (the one-block route takes M up
+    to ~3400)."""
     device = torch.device("cuda" if device is None else device)
     index = torch.cuda.current_device() if device.index is None else device.index
     key = (name, index)
@@ -325,13 +339,22 @@ def kron_mv_plain(B, K, y):
     return A.transpose(-1, -2).reshape(A.shape[:-2] + (-1,))
 
 
-def kron_mv_cuda(B, K, y):
-    """`kron_mv_plain` through `csrc/kron_mv.cu` for CUDA float32 tensors
-    with M1, M2 <= max_m("kron_mv") (16) and at most one leading chain axis
-    (broadcast across the three operands), one pass over K; `kron_mv_plain`
-    for CPU tensors."""
-    if not K.is_cuda:
-        return kron_mv_plain(B, K, y)
+def _chain_operand(t, c, inner):
+    """A small operand (B or y) as a contiguous (1 or c, *inner) tensor and its
+    chain stride: 0 when one copy serves every chain (no expanded copy)."""
+    shared = t.ndim == len(inner) or t.shape[0] == 1
+    base = (t if t.ndim > len(inner) else t[None])[:1 if shared else c].contiguous()
+    return base, 0 if shared or c == 1 else base[0].numel()
+
+
+def _kron_mv_operands(B, K, y):
+    """Check the operands of the Kronecker-matvec kernel and lay them out for
+    it without copying K.  Returns (K, B, y, args, batched): K as the (C, N1,
+    N2) view the kernel reads, B and y as `_chain_operand`s, and args =
+    (c, n1, n2, m1, m2, sc, sr, sn, b_sc, y_sc), K's element (c, r, n) lying
+    at K[c sc + r sr + n sn] with sn == 1 (rows) or sr == 1 (columns, a
+    transposed K).  A K shared by the chains has sc = 0.  A K in neither
+    layout is made contiguous (a copy)."""
     if B.ndim not in (2, 3) or K.ndim not in (2, 3) or y.ndim not in (1, 2):
         raise ValueError(f"kron_mv: expected B (C, M1, M2), K (C, N1, N2), y (C, M2 N2) or "
                          f"no C; got {tuple(B.shape)}, {tuple(K.shape)}, {tuple(y.shape)}")
@@ -339,11 +362,32 @@ def kron_mv_cuda(B, K, y):
     if y.shape[-1] != m2 * n2:
         raise ValueError(f"kron_mv: y has {y.shape[-1]} entries, expected {m2} x {n2}")
     lead = [t.shape[0] for t, d in ((B, 3), (K, 3), (y, 2)) if t.ndim == d]
-    batched = bool(lead)
     c = torch.broadcast_shapes(*((n,) for n in lead))[0] if lead else 1
-    Bc = (B if B.ndim == 3 else B[None]).expand(c, m1, m2).contiguous()
-    Kc = (K if K.ndim == 3 else K[None]).expand(c, n1, n2).contiguous()
-    yc = (y if y.ndim == 2 else y[None]).expand(c, m2 * n2).contiguous()
+    Kc = (K if K.ndim == 3 else K[None]).expand(c, n1, n2)
+    # the stride of a dimension of size 1 is never used: set it so that the
+    # layout test sees the other one
+    sc, sr, sn = Kc.stride()
+    sc = 0 if c == 1 else sc
+    sn = 1 if n2 == 1 else sn
+    sr = 1 if n1 == 1 and sn != 1 else sr
+    if sn != 1 and sr != 1:
+        Kc = Kc.contiguous()
+        sc, sr, sn = (0 if c == 1 else n1 * n2), n2, 1
+    Bc, b_sc = _chain_operand(B, c, (m1, m2))
+    yc, y_sc = _chain_operand(y, c, (m2 * n2,))
+    return Kc, Bc, yc, (c, n1, n2, m1, m2, sc, sr, sn, b_sc, y_sc), bool(lead)
+
+
+def kron_mv_cuda(B, K, y):
+    """`kron_mv_plain` through `csrc/kron_mv.cu` for CUDA float32 tensors
+    with M1, M2 <= max_m("kron_mv") (16) and at most one leading chain axis
+    (broadcast across the three operands), one pass over K, read in place:
+    as stored or transposed, and once for all chains when it has no chain
+    axis (`_kron_mv_operands`); `kron_mv_plain` for CPU tensors."""
+    if not K.is_cuda:
+        return kron_mv_plain(B, K, y)
+    Kc, Bc, yc, args, batched = _kron_mv_operands(B, K, y)
+    c, n1, n2, m1, m2 = args[:5]
     device = _check_cuda_f32("kron_mv", Kc, Bc, yc)
     if max(m1, m2) > max_m("kron_mv", device) or c > 65535:
         raise ValueError(f"kron_mv: task dims ({m1}, {m2}) above {max_m('kron_mv', device)} "
@@ -351,7 +395,7 @@ def kron_mv_cuda(B, K, y):
     out = torch.empty((c, m1 * n1), dtype=torch.float32, device=device)
     if out.numel():
         _launch("kron_mv", device, Kc.data_ptr(), Bc.data_ptr(), yc.data_ptr(), out.data_ptr(),
-                c, n1, n2, m1, m2)
+                *args)
     return out if batched else out[0]
 
 
@@ -374,18 +418,40 @@ def cholesky_plain(K):
     return cholesky_nan(K)[0]
 
 
-def cholesky_cuda(K):
+def cholesky_route(m: int, route=None) -> str:
+    """The route of `csrc/cholesky.cu` for matrices of size m: `route` if
+    given, else "one_block" below CHOLESKY_CROSSOVER_M and "multi_cta" from
+    it on."""
+    if route is None:
+        route = "multi_cta" if m >= CHOLESKY_CROSSOVER_M else "one_block"
+    if route not in CHOLESKY_ROUTES:
+        raise ValueError(f"cholesky: route {route!r} is not one of {tuple(CHOLESKY_ROUTES)}")
+    return route
+
+
+def cholesky_cuda(K, route=None):
     """Lower Cholesky factor through `csrc/cholesky.cu` for a CUDA float32
     K (..., M, M), M <= max_m("cholesky"), with `cholesky_plain`'s failure
-    semantics; `cholesky_plain` for a CPU tensor."""
+    semantics, on the route `cholesky_route(M, route)` picks (the one-block
+    route takes M <= ~3400); `cholesky_plain` for a CPU tensor."""
     if not K.is_cuda:
         return cholesky_plain(K)
     Kb, m, device = _square_batch("cholesky", K)
-    if m > max_m("cholesky", device):
-        raise ValueError(f"cholesky: M={m} above max_m {max_m('cholesky', device)}")
+    route = cholesky_route(m, route)
+    if route == "one_block":
+        with torch.cuda.device(device):
+            limit = _library("cholesky").cholesky_one_block_max_m()
+    else:
+        limit = max_m("cholesky", device)
+    if m > limit or (route != "one_block" and Kb.shape[0] > 65535):
+        raise ValueError(f"cholesky: M={m} above the {route} route's {limit}, or "
+                         f"{Kb.shape[0]} matrices")
     L = torch.empty_like(Kb)
     if Kb.numel():
-        _launch("cholesky", device, Kb.data_ptr(), L.data_ptr(), Kb.shape[0], m)
+        flags = torch.zeros(Kb.shape[0], dtype=torch.int32, device=device)
+        diag = torch.empty((Kb.shape[0], -(-m // 32), 32, 32), dtype=torch.float32, device=device)
+        _launch("cholesky", device, Kb.data_ptr(), L.data_ptr(), flags.data_ptr(),
+                diag.data_ptr(), Kb.shape[0], m, CHOLESKY_ROUTES[route])
     return L.reshape(K.shape)
 
 
@@ -544,14 +610,6 @@ def quadform_diag_dw_cuda(A, W, vbar):
     return dW if batched else dW[0]
 
 
-def _da_chunks(s: int, g: int, n: int, device) -> int:
-    """Group chunks of the dA kernel: enough (N tile, chunk) blocks for two
-    per streaming multiprocessor, at most one chunk per group."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    blocks = s * -(-n // 64)  # the kernel's N tile is 64 columns
-    return max(1, min(g, -(-2 * sms // blocks)))
-
-
 def quadform_diag_da_cuda(A, W, vbar):
     """`quadform_diag_da_plain` through `csrc/quadform_diag_da.cu` for CUDA
     float32 tensors (M <= max_m("quadform_diag_da")): partial sums over
@@ -566,7 +624,10 @@ def quadform_diag_da_cuda(A, W, vbar):
     if g == 0 or m == 0 or n == 0:
         dA = torch.zeros((s, m, n), dtype=torch.float32, device=device)
         return dA if batched else dA[0]
-    chunks = _da_chunks(s, g, n, device)
+    with torch.cuda.device(device):  # six blocks per SM, at most one chunk per group
+        chunks = _library("quadform_diag_da").quadform_diag_da_chunks(s, g, m, n)
+    if chunks < 1:
+        raise RuntimeError(f"quadform_diag_da: could not query device {device}")
     partial = torch.empty((s, chunks, m, n), dtype=torch.float32, device=device)
     dA = torch.empty((s, m, n), dtype=torch.float32, device=device)
     _launch("quadform_diag_da", device, Ab.data_ptr(), Wb.data_ptr(), vb.data_ptr(),

@@ -150,12 +150,14 @@ def _qf_inputs(dev, S, M, N, G, seed):
 @pytest.mark.parametrize(
     "S, M, N, G",
     [(1, 1, 1, 1), (2, 13, 70, 5), (1, 100, 512, 40), (3, 24, 129, 2), (1, 9, 65, 33),
+     (1, 139, 65, 3), (1, 161, 100, 7), (2, 200, 300, 5), (1, 256, 64, 2), (1, 200, 512, 200),
      (1, "max", 65, 3)],
 )
 def test_quadform_backward_kernels_match_plain(dev, S, M, N, G):
     """dW (lower triangle, zeros above) and dA against the plain versions,
-    ragged N tiles and the largest M included; sums of M products of N
-    terms, in another order, so 1e-4 of max."""
+    ragged N tiles and k-panels, M above the one-block limits of the first
+    kernels (138, 160), G below the SM count, and the largest M included;
+    sums of M products of N terms, in another order, so 1e-4 of max."""
     if M == "max":
         M = min(ck.max_m("quadform_diag_dw"), ck.max_m("quadform_diag_da"))
     A, W, vbar = _qf_inputs(dev, S, M, N, G, M * N + G)
@@ -306,6 +308,27 @@ def test_cholesky_kernel_matches_plain(dev, batch, m):
     assert (L.triu(1) == 0).all()
 
 
+@pytest.mark.parametrize("route", sorted(ck.CHOLESKY_ROUTES))
+@pytest.mark.parametrize("batch, m", [(1, 1), (4, 31), (2, 100), (1, 401), (3, 1024), (2, 2048),
+                                      (1, 3400)])
+def test_cholesky_routes_match_plain_with_nan_members(dev, route, batch, m):
+    """Each route of csrc/cholesky.cu against float64 (at most 3x the plain
+    f32 error + 1e-6 of max), zeros above the diagonal, and with one more
+    member that is not PD: NaN in its lower triangle, zero above, the
+    others unchanged."""
+    K = _spd(dev, batch + 1, m, m + 3)
+    K[-1, m // 2, m // 2] = -1.0
+    L = ck.cholesky_cuda(K, route)
+    torch.cuda.synchronize()
+    Lp, L64 = ck.cholesky_plain(K[:-1]), ck.cholesky_plain(K[:-1].double())
+    err_k = float((L[:-1].double() - L64).abs().max())
+    err_p = float((Lp.double() - L64).abs().max())
+    assert err_k <= 3 * err_p + 1e-6 * float(L64.abs().max()), (err_k, err_p)
+    assert (L.triu(1) == 0).all()
+    lower = torch.ones(m, m, dtype=torch.bool, device=dev).tril()
+    assert torch.isnan(L[-1][lower]).all() and torch.isfinite(L[:-1]).all()
+
+
 def test_cholesky_kernel_nan_semantics_and_gradient(dev):
     K = _spd(dev, 3, 40, 2)
     K[1, 20, 20] = -1.0
@@ -345,6 +368,28 @@ def test_kron_mv_kernel_matches_plain(dev, C, N, M):
     B = torch.randn(lead + (M, M), device=dev, generator=g)
     K = torch.randn(lead + (N, N), device=dev, generator=g)
     y = torch.randn(M * N, device=dev, generator=g)  # shared by the chains
+    before = ck.LAUNCHES["kron_mv"]
+    out = ck.kron_mv_cuda(B, K, y)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["kron_mv"] == before + 1
+    ref = ck.kron_mv_plain(B.double(), K.double(), y.double())
+    assert out.shape == ref.shape and _close(out, ref, 1e-5)
+
+
+@pytest.mark.parametrize("layout", ["rows", "transposed", "shared", "shared transposed"])
+@pytest.mark.parametrize("N, M", [(300, 2), (1024, 2), (37, 5), (129, 16), (2050, 3)])
+def test_kron_mv_layouts_match_plain(dev, layout, N, M):
+    """K as stored, transposed (a view), and one K for 3 chains (stride
+    0), read in place: one launch, no copy of K, against float64."""
+    g = _gen(dev, 7 * N + M)
+    C = 3
+    B = torch.randn(C, M, M, device=dev, generator=g)
+    K = torch.randn(C, N, N, device=dev, generator=g)
+    K = K[0] if "shared" in layout else K
+    K = K.mT if "transposed" in layout else K
+    y = torch.randn(C, M * N, device=dev, generator=g)
+    Kc = ck._kron_mv_operands(B, K, y)[0]
+    assert Kc.data_ptr() == K.data_ptr()
     before = ck.LAUNCHES["kron_mv"]
     out = ck.kron_mv_cuda(B, K, y)
     torch.cuda.synchronize()
