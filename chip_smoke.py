@@ -17,7 +17,9 @@ noise; serves the model the JAX package fitted to
 `sim_illustration_low_freq` (the committed fixture) and compares its
 predictions; trains an epoch by `inference()` at ECoG width (D=78, N=62,400,
 B=512), checks that all five kernels were launched and the losses are
-finite, and holds every parameter's gradient on one batch against float64;
+finite, and holds every parameter's gradient on one batch against float64
+(a float64 run, which the dispatch rule sends to the plain versions with no
+kernel launched);
 times training steps at ECoG and PM2.5-sub width (D=6, M=100, B=2000) with
 the kernels and with the plain versions, and profiles one step; fits
 `sim_illustration_low_freq` by `inference()` and holds the fit to the
@@ -98,6 +100,11 @@ SNMGP_HYPERS = dict(alpha_tilde_l=3.0, beta_tilde_l=0.4, alpha_tilde_sigma=1.0, 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and non-tensor FP32.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_TF32_PER_S = 495e12  # dense, on the tensor cores
+# TF32 products per FP32 product in the quadform backward kernels: six for
+# C = A^T W (three pieces an operand), three for the product after it
+# (3xTF32); csrc/qf_mma.cuh
+QF_TF32_PRODUCTS = (6 + 3) / 2
 EPS32 = float(torch.finfo(torch.float32).eps)
 D_ECOG, M_ECOG, B_ECOG = 78, 100, 512  # scripts/bench_ecog.py:46-52
 M_ECOG200 = 200  # the reference's M=200 ECoG block (scripts/ecog_per_m_study.py:11)
@@ -273,7 +280,8 @@ def backward_kernels(ck, gen, dev, M=M_ECOG):
     512), lower-triangular W (3003, M, M), random vbar), each f32 result
     held against float64 on the same inputs (kernel at most 3x the plain
     version's error + 1e-6 of max), then timed.  Returns {name: (timing row,
-    max |kernel - plain|)}."""
+    max |kernel - plain|, tensor-core bounds)}: the bounds in ms of the
+    kernels' split and of 3xTF32 throughout, on the dense TF32 rate."""
     G = D_ECOG * (D_ECOG - 1) // 2
     N = B_ECOG
     shape = f"({G},{M},{M})x({M},{N})"
@@ -293,6 +301,8 @@ def backward_kernels(ck, gen, dev, M=M_ECOG):
         "quadform_diag_da": 4 * (M * N + G * N + M * N) + tri,
     }
     ops = 2 * G * N * M * (M + 1)  # M (M + 1) FMAs per (g, n): C, then the product
+    tc = {"tc_bound_ms": QF_TF32_PRODUCTS * ops / PEAK_TF32_PER_S * 1e3,
+          "tc3_bound_ms": 3 * ops / PEAK_TF32_PER_S * 1e3}
     out = {}
     for name in ("quadform_diag_dw", "quadform_diag_da"):
         kern, plain = getattr(ck, f"{name}_cuda"), getattr(ck, f"{name}_plain")
@@ -310,8 +320,10 @@ def backward_kernels(ck, gen, dev, M=M_ECOG):
                device_ms(library[name]), bound_ms(n_bytes[name], ops))
         print(f"time {name} {shape}: kernel {row[0]:.4f} ms on the device, plain "
               f"{row[1]:.4f} ms, library {row[2]:.4f} ms, bound {row[3][0]:.4f} ms ({row[3][1]}), "
-              f"{row[3][0] / row[0]:.1%} of bound, {ops / (row[0] * 1e-3) / 1e9:.0f} GFLOP/s")
-        out[name] = (row, abs_err)
+              f"{row[3][0] / row[0]:.1%} of bound, {ops / (row[0] * 1e-3) / 1e9:.0f} GFLOP/s; "
+              f"tensor-core bound {tc['tc_bound_ms']:.4f} ms ({tc['tc_bound_ms'] / row[0]:.1%}), "
+              f"3xTF32 throughout {tc['tc3_bound_ms']:.4f} ms")
+        out[name] = (row, abs_err, tc)
     return out
 
 
@@ -424,9 +436,12 @@ def ecog_gradients(ck, tc, x, y, idx, Z, gen):
     launched = dict(ck.LAUNCHES)
     with plain_versions(ck):
         runs_p = [grads(torch.float32, o) for o in orders]
-        loss_64, g_64 = grads(torch.float64, orders[0])
-    check(all(launched[k] > 0 for k in TRAIN_KERNELS),
-          f"ECoG gradient: three loss.backward() launched {launched}")
+    ck.reset_launches()  # float64 takes the plain versions by the dispatch rule
+    loss_64, g_64 = grads(torch.float64, orders[0])
+    torch.cuda.synchronize()
+    check(all(launched[k] > 0 for k in TRAIN_KERNELS) and sum(ck.LAUNCHES.values()) == 0,
+          f"ECoG gradient: three float32 loss.backward() launched {launched}; the float64 one "
+          f"{dict(ck.LAUNCHES)}")
     print(f"ECoG gradient batch: loss kernels {runs_k[0][0]:.6e}, plain {runs_p[0][0]:.6e}, "
           f"float64 {loss_64:.6e}")
     worst = 0.0
@@ -1359,6 +1374,7 @@ def main() -> int:
 
     src = "collaborative_nonstationary_multivariate_gaussian_process_tpu_torch/csrc/"
     tpu = "collaborative_nonstationary_multivariate_gaussian_process_tpu/ops/pallas_kernels.py"
+    tc_bounds = {}
     rows = [
         ("gibbs", f"{tpu}:93", max(gibbs_errs)),
         ("rbf", f"{tpu}:143", fb["rbf"][1]),
@@ -1370,16 +1386,17 @@ def main() -> int:
     for n, line in (("quadform_diag_dw", 648), ("quadform_diag_da", 667)):
         rows.append((n, f"{tpu}:{line}", max(backward[n][1], backward200[n][1])))
         times[n] = backward[n][0]
+        tc_bounds[n] = backward[n][2]
         k_ms, p_ms, l_ms, (b_ms, b_by) = backward200[n][0]
         more[n] = [{"at": f"M={M_ECOG200}", "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                    "bound_ms": b_ms, "bound_by": b_by}]
+                    "bound_ms": b_ms, "bound_by": b_by, **backward200[n][2]}]
     kernels = []
     for n, r, e in rows:
         k_ms, p_ms, l_ms, (b_ms, b_by) = times[n]
         kernels.append({"name": n, "route": "cuda", "source": f"{src}{n}.cu", "replaces": r,
                         "launches": launches[n], "max_abs_err": e, "ms": k_ms, "plain_ms": p_ms,
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
-                        "more": more.get(n, [])})
+                        **tc_bounds.get(n, {}), "more": more.get(n, [])})
     print(json.dumps({"kernels": kernels}))
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)

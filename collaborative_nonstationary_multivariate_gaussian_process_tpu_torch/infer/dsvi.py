@@ -69,6 +69,11 @@ class DSVIResult:
     time_list: List[float]
     elbo_trace: List[float] = field(default_factory=list)
     rmse_test_list: List[float] = field(default_factory=list)
+    # (wall seconds, epochs done, rmse) at each checkpoint of
+    # `chunked_test_trace`, and the rollbacks `divergence_rollback` took:
+    # the JAX result's fields; empty and 0 until those options are ported
+    rmse_trace: List[tuple] = field(default_factory=list)
+    rollbacks: int = 0
 
 
 def apply_hyperpars(params: CNMGPParams, hyperpars: Optional[Dict[str, float]]) -> CNMGPParams:
@@ -193,6 +198,8 @@ def inference(
     lr_decay: Optional[float] = None,
     chunked_test_trace: bool = False,
     divergence_rollback: bool = False,
+    rollback_lr_factor: float = 0.5,
+    max_rollbacks: int = 5,
     optimizer: str = "adam",
     ckpt_moments_dtype=None,
     device=None,
@@ -209,16 +216,22 @@ def inference(
     `torch.Generator` seeded with `seed` on the device; the same seed gives
     other numbers than the JAX package.  `time_list` holds, for each step,
     the seconds since the start at the end of its epoch, when its loss was
-    read.  Checkpoints (`PATH`, `save_model`, `continuous_training`,
-    `ckpt_moments_dtype`), `mesh`, `divergence_rollback` and
-    `chunked_test_trace` are not ported yet and raise NotImplementedError.
+    read.  On a CUDA card a float32 run goes through the kernels and a
+    float64 one (`dtype=torch.float64`) through their plain versions, as
+    the JAX package takes Pallas only for float32.  Not ported yet, each
+    raising NotImplementedError that names its ROADMAP.md item: the
+    checkpoint (`PATH`, `save_model`, `continuous_training`,
+    `ckpt_moments_dtype`; Queue 1 item 3), `mesh` (item 10), and
+    `divergence_rollback` and `chunked_test_trace` (item 2;
+    `rollback_lr_factor` and `max_rollbacks` are taken and serve only
+    `divergence_rollback`).
     """
     deferred = {
-        "PATH": (PATH is not None, "9"), "save_model": (save_model, "9"),
-        "continuous_training": (continuous_training, "9"),
-        "ckpt_moments_dtype": (ckpt_moments_dtype is not None, "9"),
-        "mesh": (mesh is not None, "16"), "divergence_rollback": (divergence_rollback, "7"),
-        "chunked_test_trace": (chunked_test_trace, "7"),
+        "PATH": (PATH is not None, "3"), "save_model": (save_model, "3"),
+        "continuous_training": (continuous_training, "3"),
+        "ckpt_moments_dtype": (ckpt_moments_dtype is not None, "3"),
+        "mesh": (mesh is not None, "10"), "divergence_rollback": (divergence_rollback, "2"),
+        "chunked_test_trace": (chunked_test_trace, "2"),
     }
     for name, (given, item) in deferred.items():
         if given:

@@ -16,7 +16,14 @@ variance quadratic form and its two backward kernels), and each has:
     `quadform_diag_dw_plain`, `quadform_diag_da_plain`) with the same math.  The CPU tests run it, and
     `chip_smoke.py` holds each kernel against it on the card.
 
-Sources live in `../csrc/*.cu` (with the shared header `chol_blocked.cuh`).
+Which of the two an op of `ops/` runs is one stated rule, `use_kernel`
+(through `pick`): the kernel for CUDA float32 operands of a shape it takes,
+the plain version otherwise (float64, a CPU tensor, a Gibbs input of
+dimension above 4, a 2-D RBF input), as the JAX package takes Pallas only
+for float32.
+
+Sources live in `../csrc/*.cu` (with the shared headers `chol_blocked.cuh`
+and `qf_mma.cuh`).
 Each is compiled on first use with `nvcc` for `sm_90a` into `build/` at the
 repository root (one shared library per source, named by a hash of the
 sources and flags) and bound with `ctypes`; every C entry returns
@@ -39,6 +46,9 @@ from . import kernels as _kernels  # sq_dist and the point layout, for the Gibbs
 __all__ = [
     "KERNELS",
     "LAUNCHES",
+    "GIBBS_MAX_DIM",
+    "use_kernel",
+    "pick",
     "reset_launches",
     "build",
     "gibbs_cuda",
@@ -76,6 +86,9 @@ CHOLESKY_ROUTES = {"one_block": 0, "multi_cta": 1}
 # 2 the two routes tie at M = 100 and the multi-CTA one is faster from
 # M = 128 on (chip_smoke.py's crossover table; PERF.md).
 CHOLESKY_CROSSOVER_M = 128
+
+# The largest input dimension the Gibbs kernel takes (the JAX function takes any).
+GIBBS_MAX_DIM = 4
 
 # Launches of each kernel since the last `reset_launches()`.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -199,6 +212,31 @@ def _launch(name: str, device: torch.device, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def _device_type(t: torch.Tensor) -> str:
+    return t.device.type
+
+
+def use_kernel(*operands, dim: int = 1, max_dim: int = 1) -> bool:
+    """The dispatch rule of the port's ops, the JAX package's own (Pallas
+    only for float32: `_use_pallas`, ops/kernels.py:78-92, and the
+    quadform's test, ops/linalg.py:407-415): an op runs its kernel when
+    every tensor among `operands` lies on a CUDA card in float32 and the
+    input dimension `dim` is at most the kernel's `max_dim`.  Float64, a CPU
+    tensor or a wider input runs the plain version.  A rule, decided before
+    the call: no kernel failure is caught."""
+    return dim <= max_dim and all(
+        _device_type(t) == "cuda" and t.dtype == torch.float32
+        for t in operands if isinstance(t, torch.Tensor)
+    )
+
+
+def pick(name: str, *operands, dim: int = 1, max_dim: int = 1):
+    """`{name}_cuda` where `use_kernel(*operands, dim=dim, max_dim=max_dim)`
+    holds, else `{name}_plain`."""
+    route = "cuda" if use_kernel(*operands, dim=dim, max_dim=max_dim) else "plain"
+    return globals()[f"{name}_{route}"]
+
+
 def _check_cuda_f32(name: str, *tensors: torch.Tensor) -> torch.device:
     device = tensors[0].device
     for t in tensors:
@@ -239,8 +277,10 @@ def gibbs_cuda(x1, x2, ell1, ell2, scale2=1.0):
     m = p2.shape[0]
     if p2.shape[1] != d:
         raise ValueError(f"gibbs: input dims differ, {d} and {p2.shape[1]}")
-    if d > 4:
-        raise ValueError(f"gibbs: the CUDA kernel takes inputs of dimension <= 4, got {d}")
+    if d > GIBBS_MAX_DIM:
+        raise ValueError(
+            f"gibbs: the CUDA kernel takes inputs of dimension <= {GIBBS_MAX_DIM}, got {d}"
+        )
     batched = ell1.ndim == 2 or ell2.ndim == 2
     s = ell1.shape[0] if ell1.ndim == 2 else (ell2.shape[0] if ell2.ndim == 2 else 1)
     l1 = ell1.expand(s, n).contiguous()
@@ -588,8 +628,9 @@ def quadform_diag_da_plain(A, W, vbar):
 def quadform_diag_dw_cuda(A, W, vbar):
     """`quadform_diag_dw_plain` through `csrc/quadform_diag_dw.cu` for CUDA
     float32 tensors (M <= max_m("quadform_diag_dw")), recomputing C tile by
-    tile instead of holding the (G, N, M) intermediate;
-    `quadform_diag_dw_plain` for CPU tensors.
+    tile instead of holding the (G, N, M) intermediate, both products on the
+    tensor cores by split TF32 operands (`csrc/qf_mma.cuh`; float32-level
+    accuracy); `quadform_diag_dw_plain` for CPU tensors.
 
     W must be lower-triangular, as it is on the path (W = Lp^-1 @
     tril(sqrt)).  Only dW's lower triangle is computed and zeros are written
@@ -613,9 +654,10 @@ def quadform_diag_dw_cuda(A, W, vbar):
 def quadform_diag_da_cuda(A, W, vbar):
     """`quadform_diag_da_plain` through `csrc/quadform_diag_da.cu` for CUDA
     float32 tensors (M <= max_m("quadform_diag_da")): partial sums over
-    chunks of groups, then a fixed-order reduction of the chunks (both in
-    the kernel's source, deterministic); `quadform_diag_da_plain` for CPU
-    tensors.  W must be lower-triangular: only that triangle is read."""
+    chunks of groups on the tensor cores by split TF32 operands, then a fixed-order
+    reduction of the chunks (both in the kernel's source, deterministic);
+    `quadform_diag_da_plain` for CPU tensors.  W must be lower-triangular:
+    only that triangle is read."""
     if not A.is_cuda:
         return quadform_diag_da_plain(A, W, vbar)
     (Ab, Wb, vb), (s, g, m, n), batched, device = _quadform_operands(

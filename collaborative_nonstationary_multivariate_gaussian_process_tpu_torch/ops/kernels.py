@@ -4,10 +4,11 @@ Same formulas as the JAX package's `ops/kernels.py:33-148` (reference
 `create_RBF` / `create_Gibbs` / `Nonstationary_RBF_cov`, code/utils.py:75-103,
 SIM_code/Utility/kernels.py:46-73).  `rbf` and `gibbs` go through the
 hand-written RBF and Gibbs kernels (`ops.cuda_kernels.rbf_cuda`,
-`gibbs_cuda`) for CUDA tensors, and their backwards are the closed forms of
-the JAX package's `_rbf_bwd` and `_gibbs_bwd` (pallas_kernels.py:121-178),
-there in plain jnp as here.  Both take a leading chain (or draw) axis on
-their scale and lengthscale arguments.
+`gibbs_cuda`) for CUDA float32 tensors of the dimensions they take, the
+plain versions otherwise (`cuda_kernels.use_kernel`), and their backwards
+are the closed forms of the JAX package's `_rbf_bwd` and `_gibbs_bwd`
+(pallas_kernels.py:121-178), there in plain jnp as here.  Both take a
+leading chain (or draw) axis on their scale and lengthscale arguments.
 """
 
 from __future__ import annotations
@@ -58,7 +59,9 @@ class _RBF(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x1, x2, scale2, length_scale):
-        K = cuda_kernels.rbf_cuda(x1, x2, scale2, length_scale)
+        # the RBF kernel takes 1-D inputs
+        rbf = cuda_kernels.pick("rbf", x1, x2, scale2, length_scale, dim=max(x1.ndim, x2.ndim))
+        K = rbf(x1, x2, scale2, length_scale)
         ctx.scale2, ctx.length_scale = scale2, length_scale
         ctx.save_for_backward(x1, x2)
         return K
@@ -121,7 +124,9 @@ class _Gibbs(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x1, x2, ell1, ell2, scale2):
-        K = cuda_kernels.gibbs_cuda(x1, x2, ell1, ell2, scale2)
+        gibbs = cuda_kernels.pick("gibbs", x1, x2, ell1, ell2, scale2,
+                                  dim=_as_points(x1).shape[-1], max_dim=cuda_kernels.GIBBS_MAX_DIM)
+        K = gibbs(x1, x2, ell1, ell2, scale2)
         ctx.scale2 = scale2
         ctx.save_for_backward(x1, x2, ell1, ell2, K)
         return K

@@ -3,7 +3,8 @@
 The JAX package's `ops/kron.py:24-79` (reference `kronecker_operation.py`),
 each function taking an optional leading chain axis.  `kron_mv` goes
 through the hand-written Kronecker-matvec kernel
-(`ops.cuda_kernels.kron_mv_cuda`) for CUDA tensors; its gradient in y goes
+(`ops.cuda_kernels.kron_mv_cuda`) for CUDA float32 tensors (the plain
+version otherwise, `cuda_kernels.use_kernel`); its gradient in y goes
 through the same kernel, and those in the two factors are plain matmuls, as
 JAX autodiff computes them outside any Pallas kernel.  `eigh` stays a
 library call (`jnp.linalg.eigh` in JAX, not a Pallas kernel).
@@ -42,7 +43,7 @@ class _KronMV(torch.autograd.Function):
     @staticmethod
     def forward(ctx, B, K, y):
         ctx.save_for_backward(B, K, y)
-        return cuda_kernels.kron_mv_cuda(B, K, y)
+        return cuda_kernels.pick("kron_mv", B, K, y)(B, K, y)
 
     @staticmethod
     def backward(ctx, g):
@@ -51,7 +52,8 @@ class _KronMV(torch.autograd.Function):
         (m1, m2), (n1, n2) = B.shape[-2:], K.shape[-2:]
         dB = dK = dy = None
         if need_y:
-            dy = cuda_kernels.kron_mv_cuda(B.transpose(-1, -2), K.transpose(-1, -2), g)
+            Bt, Kt = B.transpose(-1, -2), K.transpose(-1, -2)
+            dy = cuda_kernels.pick("kron_mv", Bt, Kt, g)(Bt, Kt, g)
             dy = dy.sum_to_size(y.shape)
         if need_B or need_K:
             G = g.reshape(g.shape[:-1] + (m1, n1)).transpose(-1, -2)  # (..., N1, M1)

@@ -143,7 +143,7 @@ class _Cholesky(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, K):
-        L = cuda_kernels.cholesky_cuda(K)
+        L = cuda_kernels.pick("cholesky", K)(K)
         ctx.save_for_backward(L)
         return L
 
@@ -160,7 +160,8 @@ class _Cholesky(torch.autograd.Function):
 
 def cholesky(K):
     """Lower Cholesky factor of SPD K (..., M, M) through the Cholesky kernel
-    (`cuda_kernels.cholesky_cuda`), differentiable (Murray pullback).  A
+    (`cuda_kernels.cholesky_cuda`; the plain version off `use_kernel`'s
+    rule: float64 or a CPU tensor), differentiable (Murray pullback).  A
     member that is not numerically positive-definite gets NaN in its lower
     triangle, as `jnp.linalg.cholesky` gives, instead of an error."""
     return _Cholesky.apply(K)
@@ -239,7 +240,7 @@ class _CholTriInv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, K):
-        L, Linv = cuda_kernels.chol_inv_cuda(K)
+        L, Linv = cuda_kernels.pick("chol_inv", K)(K)
         ctx.save_for_backward(L, Linv)
         return L, Linv
 
@@ -258,7 +259,8 @@ class _CholTriInv(torch.autograd.Function):
 
 def chol_tri_inv(K):
     """(L, L^{-1}) of SPD K (..., M, M), through the fused kernel
-    (`cuda_kernels.chol_inv_cuda`), differentiable with the matmul-only
+    (`cuda_kernels.chol_inv_cuda`; the plain version off `use_kernel`'s
+    rule), differentiable with the matmul-only
     backward.  A member that is not numerically positive-definite gets NaN
     factors (and NaN gradients, which the training step zeroes)."""
     return _CholTriInv.apply(K)
@@ -326,7 +328,8 @@ def mgp_mean_var_white(A, Lp_inv, d11, mu, scale_tril):
 
 class _QuadformDiag(torch.autograd.Function):
     """V = sum_k (A^T W_g)^2 by the forward quadform kernel; the backward is
-    the two backward kernels (dA, and dW's lower triangle).  Saves A and W,
+    the two backward kernels (dA, and dW's lower triangle); each the plain
+    version off `cuda_kernels.use_kernel`'s rule.  Saves A and W,
     never C: the kernels recompute C tile by tile, as the JAX package's
     `_qf_bwd_rule` (pallas_kernels.py:636-684) does, so the (G, N, M)
     intermediate is never held."""
@@ -334,7 +337,7 @@ class _QuadformDiag(torch.autograd.Function):
     @staticmethod
     def forward(ctx, A, W):
         ctx.save_for_backward(A, W)
-        return cuda_kernels.quadform_diag_cuda(A, W)
+        return cuda_kernels.pick("quadform_diag", A, W)(A, W)
 
     @staticmethod
     def backward(ctx, vbar):
@@ -342,9 +345,9 @@ class _QuadformDiag(torch.autograd.Function):
         vbar = vbar.contiguous()  # it may arrive expanded
         dA = dW = None
         if ctx.needs_input_grad[0]:
-            dA = cuda_kernels.quadform_diag_da_cuda(A, W, vbar)
+            dA = cuda_kernels.pick("quadform_diag_da", A, W, vbar)(A, W, vbar)
         if ctx.needs_input_grad[1]:
-            dW = cuda_kernels.quadform_diag_dw_cuda(A, W, vbar)
+            dW = cuda_kernels.pick("quadform_diag_dw", A, W, vbar)(A, W, vbar)
         return dA, dW
 
 

@@ -9,6 +9,7 @@ nor the JAX package, so they also run where JAX is not installed:
 from contextlib import ExitStack
 from unittest import mock
 
+import numpy as np
 import pytest
 import torch
 
@@ -174,6 +175,56 @@ def test_quadform_backward_kernels_match_plain(dev, S, M, N, G):
     dA0 = ck.quadform_diag_da_cuda(A[0], W[0], vbar[0])
     assert dW0.shape == (G, M, M) and dA0.shape == (M, N)
     assert torch.equal(dW0, dW[0]) and torch.equal(dA0, dA[0])  # deterministic
+
+
+@pytest.mark.parametrize("S", [1, 2])
+@pytest.mark.parametrize("G", [1, 3003])
+@pytest.mark.parametrize("N", [512, 75])
+@pytest.mark.parametrize("M", [100, 200, 37, 131])
+def test_quadform_backward_kernels_against_float64(dev, M, N, G, S):
+    """The tensor-core backward kernels (split operands, csrc/qf_mma.cuh) at
+    the path's M = 100 and 200, M not a multiple of 4 or 16, N not a
+    multiple of 4 (4-byte copies), one group and ECoG's 3003: each at most
+    3x as far from float64 as the plain float32 version, + 1e-6 of max (the
+    floor of chip_smoke.backward_kernels); two runs bitwise equal."""
+    g = _gen(dev, M * N + G + S)
+    A = torch.randn(S, M, N, device=dev, generator=g)
+    W = 0.1 * torch.randn(S, G, M, M, device=dev, generator=g).tril()
+    vbar = torch.randn(S, G, N, device=dev, generator=g)
+    for name in ("quadform_diag_dw", "quadform_diag_da"):
+        kern, plain = getattr(ck, f"{name}_cuda"), getattr(ck, f"{name}_plain")
+        got = kern(A, W, vbar)
+        ref = plain(A.double(), W.double(), vbar.double())
+        scale = float(ref.abs().max())
+        err_k = float((got.double() - ref).abs().max()) / scale
+        err_p = float((plain(A, W, vbar).double() - ref).abs().max()) / scale
+        assert err_k <= 3 * err_p + 1e-6, (name, err_k, err_p)
+        assert torch.equal(got, kern(A, W, vbar))  # deterministic
+        del got, ref
+
+
+def test_float64_inference_on_the_card_launches_no_kernel(dev):
+    """dtype=float64 takes the plain versions by the dispatch rule
+    (`cuda_kernels.use_kernel`), as the JAX package takes Pallas only for
+    float32; a float32 run of the same fit launches all five training
+    kernels."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer import dsvi
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils.sim import (
+        sim_illustration_low_freq,
+    )
+
+    X, Y, _, _ = sim_illustration_low_freq(seed=1)
+    fits = {}
+    for dtype in (torch.float64, torch.float32):
+        ck.reset_launches()
+        res = dsvi.inference(X, Y, np.linspace(0, 1, 10), 64, 2, itnum=2, show_ELBO=False,
+                             dtype=dtype, seed=0, device=dev)
+        torch.cuda.synchronize()
+        fits[dtype] = (dict(ck.LAUNCHES), res)
+        assert np.all(np.isfinite(res.loss_list)) and len(res.loss_list) == 2 * 4
+        assert res.params.mu_v.dtype == dtype and res.params.mu_v.is_cuda
+    assert sum(fits[torch.float64][0].values()) == 0, fits[torch.float64][0]
+    assert all(fits[torch.float32][0][k] > 0 for k in TRAIN_KERNELS), fits[torch.float32][0]
 
 
 def test_backward_wrappers_refuse_what_the_kernels_do_not_take(dev):

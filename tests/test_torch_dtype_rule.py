@@ -1,0 +1,124 @@
+"""The port's dispatch rule on the CPU: an op of `ops/` runs its CUDA kernel
+for float32 operands on a card (of an input dimension the kernel takes),
+and the plain version for float64 or a wider input, as the JAX package
+takes Pallas only for float32.
+
+No card here, so the rule is made to see "cuda" by patching the one place
+it reads a tensor's device type (`cuda_kernels._device_type`), and each
+`*_cuda` wrapper is replaced by a stub that records the call and returns
+the plain version's result.
+"""
+
+from contextlib import ExitStack
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+
+from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops import (
+    cuda_kernels as ck,
+)
+from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops import kernels, kron, linalg
+
+torch.set_num_threads(1)
+
+
+def _t(a, dtype):
+    return torch.as_tensor(np.asarray(a), dtype=dtype)
+
+
+def test_use_kernel_rule():
+    f32 = torch.ones(3)
+    f64 = torch.ones(3, dtype=torch.float64)
+    assert not ck.use_kernel(f32)  # a CPU tensor
+    with mock.patch.object(ck, "_device_type", lambda t: "cuda"):
+        assert ck.use_kernel(f32, f32, 1.5)  # non-tensor operands are not judged
+        assert not ck.use_kernel(f64)
+        assert not ck.use_kernel(f32, f64)
+        assert not ck.use_kernel(f32.half())
+        assert ck.use_kernel(f32, dim=4, max_dim=ck.GIBBS_MAX_DIM)
+        assert not ck.use_kernel(f32, dim=5, max_dim=ck.GIBBS_MAX_DIM)
+        assert not ck.use_kernel(f32, dim=2)  # the default max_dim is 1
+    with mock.patch.object(ck, "_device_type", lambda t: "meta"):
+        assert not ck.use_kernel(f32)
+    assert ck.pick("gibbs", f32) is ck.gibbs_plain
+
+
+def _inputs(dtype, d=1):
+    r = np.random.default_rng(0)
+    M, N, G = 6, 9, 3
+    A = r.standard_normal((M, N))
+    K = A @ A.T / N + np.eye(M)
+    W = np.tril(r.standard_normal((G, M, M)))
+    x1 = np.sort(r.random((N, d)), axis=0) if d > 1 else np.sort(r.random(N))
+    x2 = np.sort(r.random((M, d)), axis=0) if d > 1 else np.sort(r.random(M))
+    ell1, ell2 = np.exp(0.2 * r.standard_normal(N)), np.exp(0.2 * r.standard_normal(M))
+    B, Kk, y = r.standard_normal((2, 2)), r.standard_normal((N, N)), r.standard_normal(2 * N)
+    return {k: _t(v, dtype).requires_grad_(True) for k, v in dict(
+        A=A, K=K, W=W, x1=x1, x2=x2, ell1=ell1, ell2=ell2, B=B, Kk=Kk, y=y).items()}
+
+
+# each op of ops/ that has a kernel: (the wrappers its forward and backward
+# call, a function of the inputs whose backward reaches them)
+CALL_SITES = {
+    "cholesky": (("cholesky",), lambda p: linalg.cholesky(p["K"])),
+    "chol_tri_inv": (("chol_inv",), lambda p: linalg.chol_tri_inv(p["K"])[1]),
+    "quadform": (("quadform_diag", "quadform_diag_dw", "quadform_diag_da"),
+                 lambda p: linalg._quadform_diag(p["A"], p["W"])),
+    "gibbs": (("gibbs",), lambda p: kernels.gibbs(p["x1"], p["x2"], p["ell1"], p["ell2"], 1.3)),
+    "rbf": (("rbf",), lambda p: kernels.rbf(p["x1"], p["x2"], 1.3, 0.4)),
+    "kron_mv": (("kron_mv",), lambda p: kron.kron_mv(p["B"], p["Kk"], p["y"])),
+}
+
+
+def _run(site, dtype, d=1):
+    """Run a call site forward and backward with the rule seeing "cuda";
+    returns (the wrappers called, the output, the gradients)."""
+    calls = []
+    with ExitStack() as stack:
+        stack.enter_context(mock.patch.object(ck, "_device_type", lambda t: "cuda"))
+        for name in ck.KERNELS:
+            plain = getattr(ck, f"{name}_plain")
+
+            def stub(*args, _name=name, _plain=plain):
+                calls.append(_name)
+                return _plain(*args)
+
+            stack.enter_context(mock.patch.object(ck, f"{name}_cuda", stub))
+        p = _inputs(dtype, d)
+        out = CALL_SITES[site][1](p)
+        out.sum().backward()
+    return calls, out.detach(), [t.grad for t in p.values() if t.grad is not None]
+
+
+@pytest.mark.parametrize("site", sorted(CALL_SITES))
+def test_float32_on_the_card_takes_the_kernels(site):
+    calls, out, _ = _run(site, torch.float32)
+    assert set(calls) == set(CALL_SITES[site][0]), calls
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("site", sorted(CALL_SITES))
+def test_float64_on_the_card_takes_the_plain_versions(site):
+    calls, out, grads = _run(site, torch.float64)
+    assert calls == []
+    assert out.dtype == torch.float64 and torch.isfinite(out).all()
+    # the same values as off the card, where the wrappers return the plain versions
+    p = _inputs(torch.float64)
+    want = CALL_SITES[site][1](p)
+    want.sum().backward()
+    assert torch.equal(out, want.detach())
+    for g, w in zip(grads, [t.grad for t in p.values() if t.grad is not None]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("site, d", [("gibbs", 5), ("rbf", 2)])
+def test_inputs_the_kernels_do_not_take_go_to_the_plain_versions(site, d):
+    """Gibbs inputs of dimension above 4 and 2-D RBF inputs, which the JAX
+    functions take: float32 on the card, and still no kernel."""
+    calls, out, grads = _run(site, torch.float32, d)
+    assert calls == [] and torch.isfinite(out).all()
+    assert grads and all(torch.isfinite(g).all() for g in grads)
+    calls, _, _ = _run(site, torch.float32, ck.GIBBS_MAX_DIM if site == "gibbs" else 1)
+    assert calls == [site]
