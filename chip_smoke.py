@@ -7,8 +7,11 @@ prediction and fully-Bayesian NUTS/HMC) on one CUDA card.
 In order: builds the eight hand-written kernels from
 `collaborative_nonstationary_multivariate_gaussian_process_tpu_torch/csrc`
 with nvcc; holds each kernel against its plain PyTorch version on the card
-at the shapes of the path (the serving forwards, and the two backward
-kernels of the quadratic form against float64 at M = 100 and 200); serves `predict_Y`,
+at the shapes of the path (the serving forwards; the forward of the
+quadratic form and its two backward kernels against float64 at M = 100
+and 200, the forward also on the path's kind of inputs and timed against
+its einsum at every shape of the training and serving paths; the Gibbs
+gram at every shape of the paths beside the launch floor); serves `predict_Y`,
 `sample_Y` and `sample_FY` at the full ECoG width (D=78 outputs, M=100
 inducing points, B=512 test points) from seeded random parameters, checks
 that every kernel of each path was launched, and holds each call, and the
@@ -325,6 +328,122 @@ def backward_kernels(ck, gen, dev, M=M_ECOG):
               f"3xTF32 throughout {tc['tc3_bound_ms']:.4f} ms")
         out[name] = (row, abs_err, tc)
     return out
+
+
+def path_qf_inputs(dev, M, N, G, seed):
+    """The quadform's operands as the path makes them, where C = A^T W
+    cancels (W's entries ~100x C's): A = Lp^-1 K_zx and W_g = Lp^-1
+    tril(S_g) of the RBF prior of lengthscale 40 on Z = linspace(0, 800, M)
+    (+ 1e-4 jitter), inputs on the ECoG time axis; float32 on the card."""
+    r = np.random.default_rng(seed)
+    Z = np.linspace(0.0, 800.0, M)
+    x = np.sort(r.uniform(0.0, 800.0, N))
+    k = lambda a, b: np.exp(-0.5 * ((a[:, None] - b[None, :]) / 40.0) ** 2)  # noqa: E731
+    Lp_inv = np.linalg.solve(np.linalg.cholesky(k(Z, Z) + 1e-4 * np.eye(M)), np.eye(M))
+    S = np.tril(0.1 * r.standard_normal((G, M, M))) + np.eye(M)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    return f32(Lp_inv @ k(Z, x)), f32(np.tril(Lp_inv @ S))
+
+
+# 6a's shapes (S, G, M, N) on the main paths: ECoG training's three calls a
+# step (G = 3003 and 78, S = 1, N = B = 512) at M = 100 and 200, PM2.5-sub
+# training's (G = 15 and 6, N = 2000), sample_Y's chunks of 8 draws,
+# sample_FY's N = 64 and the illustration fit's D = 2 (G = 1 and 2, M = 10,
+# N = 200)
+QF_PATH_SHAPES = (
+    (1, 3003, 100, 512), (1, 78, 100, 512), (1, 3003, 200, 512), (1, 78, 200, 512),
+    (1, 15, 100, 2000), (1, 6, 100, 2000), (8, 78, 100, 512), (8, 3003, 100, 64),
+    (8, 78, 100, 64), (1, 1, 10, 200), (1, 2, 10, 200),
+)
+
+
+def qf_bound(S, G, M, N):
+    """6a's bound: per (g, n) M (M + 1) / 2 FMAs for C and M for its squares;
+    W's triangle, A and V moved once."""
+    return bound_ms(4 * (S * M * N + S * G * M * (M + 1) // 2 + S * G * N), S * G * N * (M * M + 3 * M))
+
+
+def forward_kernel(ck, gen, dev):
+    """6a held against float64 at M = 100 and 200 (A (M, 512), G = 3003), on
+    random lower-triangular W and on the path's kind of inputs: kernel at
+    most 3x the plain f32 version's error + 1e-6 of max; then timed against
+    the plain version and the einsum at every shape of QF_PATH_SHAPES.
+    Returns (max |kernel - plain|, the timing rows)."""
+    G, N = D_ECOG * (D_ECOG - 1) // 2, B_ECOG
+    errs = []
+    for M in (M_ECOG, M_ECOG200):
+        A = torch.randn(M, N, device=dev, generator=gen)
+        W = 0.1 * torch.randn(G, M, M, device=dev, generator=gen).tril()
+        for kind, (a, w) in (("random", (A, W)), ("path", path_qf_inputs(dev, M, N, G, M))):
+            got, plain = ck.quadform_diag_cuda(a, w), ck.quadform_diag_plain(a, w)
+            ref64 = ck.quadform_diag_plain(a.double(), w.double())
+            torch.cuda.synchronize()
+            errs.append(witnessed(f"quadform_diag ({kind} inputs)", got, plain, ref64, 1e-6,
+                                  f"({G},{M},{M})x({M},{N})"))
+            del got, plain, ref64
+        del A, W
+    rows = []
+    for S, G, M, N in QF_PATH_SHAPES:
+        A = torch.randn(S, M, N, device=dev, generator=gen)
+        W = 0.1 * torch.randn(S, G, M, M, device=dev, generator=gen).tril()
+        rows.append(timing_entry(
+            f"quadform_diag ({S},{G},{M},{M})x({S},{M},{N})", lambda: ck.quadform_diag_cuda(A, W),
+            lambda: ck.quadform_diag_plain(A, W),
+            lambda: torch.einsum("smn,sgmk->sgnk", A, W).square().sum(-1), qf_bound(S, G, M, N),
+            inner=1))
+        check(rows[-1]["ms"] < rows[-1]["library_ms"],
+              f"{rows[-1]['at']}: kernel {rows[-1]['ms']:.4f} ms below the einsum "
+              f"{rows[-1]['library_ms']:.4f} ms")
+        del A, W
+    return max(errs), rows
+
+
+# The Gibbs gram's shapes (S, N, M) on the paths: DSVI's cross and inducing
+# grams a step, serving's chunks of 8 draws, the SVC NUTS gradient and the
+# SNMGP prior at N = 1024
+GIBBS_PATH_SHAPES = ((1, 512, 100), (1, 100, 100), (8, 512, 100), (8, 100, 100), (4, 100, 100),
+                     (4, 1024, 1024))
+
+
+def gibbs_shapes(ck, gen, dev):
+    """The Gibbs kernel at every shape of GIBBS_PATH_SHAPES (d = 1): rtol
+    1e-5 against the plain version, then timed beside the launch floor (a
+    near-empty kernel, `torch.cuda._sleep` of a few cycles, by the same
+    timer).  Returns (max |kernel - plain|, the timing rows)."""
+    floor = device_ms(lambda: torch.cuda._sleep(8), inner=10)
+    print(f"time launch floor (torch.cuda._sleep(8)): {floor:.5f} ms on the device", flush=True)
+    errs, rows = [], []
+    for S, n, m in GIBBS_PATH_SHAPES:
+        x1 = 800.0 * torch.rand(n, device=dev, generator=gen)  # the ECoG time axis
+        x2 = 800.0 * torch.rand(m, device=dev, generator=gen)
+        l1 = torch.exp(2.5 + 0.3 * torch.randn(S, n, device=dev, generator=gen))
+        l2 = torch.exp(2.5 + 0.3 * torch.randn(S, m, device=dev, generator=gen))
+        K, K_ref = ck.gibbs_cuda(x1, x2, l1, l2, 1.0), ck.gibbs_plain(x1, x2, l1, l2, 1.0)
+        torch.cuda.synchronize()
+        errs.append(float((K - K_ref).abs().max()))
+        check(float(((K - K_ref).abs() - 1e-5 * K_ref.abs() - 1e-30).max()) <= 0.0
+              and bool(torch.isfinite(K).all()), f"gibbs ({S},{n},{m}): max|K-plain| {errs[-1]:.3e}, rtol 1e-5")
+        el = S * n * m
+        row = timing_entry(f"gibbs ({S},{n},{m})", lambda: ck.gibbs_cuda(x1, x2, l1, l2, 1.0),
+                           lambda: ck.gibbs_plain(x1, x2, l1, l2, 1.0), None,
+                           bound_ms(4 * (n + m + S * (n + m) + el), el * 15), inner=10)
+        row["floor_ms"] = floor
+        rows.append(row)
+        print(f"  gibbs ({S},{n},{m}): {row['ms'] - floor:.5f} ms above the launch floor", flush=True)
+        del K, K_ref
+    # inputs on [0, 1], lengthscales ~0.1: most entries lie far out on the
+    # exponential (|x1 - x2|^2 / (l1^2 + l2^2) up to ~50), where two float32
+    # evaluations of the same formula differ by ~1e-5 of the entry (an ulp
+    # of the exponent's argument); both held against float64 instead
+    S, n, m = GIBBS_PATH_SHAPES[-1]
+    x1, x2 = torch.rand(n, device=dev, generator=gen), torch.rand(m, device=dev, generator=gen)
+    l1 = torch.exp(-2.3 + 0.3 * torch.randn(S, n, device=dev, generator=gen))
+    l2 = torch.exp(-2.3 + 0.3 * torch.randn(S, m, device=dev, generator=gen))
+    f64 = [t.double() for t in (x1, x2, l1, l2)]
+    errs.append(witnessed("gibbs (far entries)", ck.gibbs_cuda(x1, x2, l1, l2, 1.0),
+                          ck.gibbs_plain(x1, x2, l1, l2, 1.0), ck.gibbs_plain(*f64, 1.0), 1e-6,
+                          f"({S},{n},{m})"))
+    return max(errs), rows
 
 
 def ecog_lists():
@@ -1202,9 +1321,13 @@ def main() -> int:
     qf_err, qf_rel = rel_to_max(V, V_ref)
     # sums of 100 products, then of 100 squares, in another order
     check(qf_rel <= 1e-4, f"quadform_diag (8,3003,512): max err {qf_err:.3e} ({qf_rel:.3e} of max|V|), tol 1e-4")
+    # the checks added for 6a and Gibbs draw from generators of their own, so
+    # that every other check of the script keeps its inputs
+    qf64_err, qf_rows = forward_kernel(ck, torch.Generator(device=dev).manual_seed(7), dev)
     backward = backward_kernels(ck, gen, dev)
-    for name in ("quadform_diag_dw", "quadform_diag_da"):
+    for name in ("quadform_diag", "quadform_diag_dw", "quadform_diag_da"):
         check(ck.max_m(name) >= 512, f"max_m({name!r}) = {ck.max_m(name)} >= 512")
+    gibbs_err, gibbs_rows = gibbs_shapes(ck, torch.Generator(device=dev).manual_seed(8), dev)
     backward200 = backward_kernels(ck, gen, dev, M_ECOG200)
 
     # ----------------------------------------- serving at full ECoG width
@@ -1295,9 +1418,7 @@ def main() -> int:
     d = 1
     n_el = S_CHUNK * B_ECOG * M_ECOG
     nb = 4 * S_CHUNK
-    # W is lower-triangular: per (g, n), M (M + 1) / 2 FMAs for C and M for
-    # its squares; the triangle of W is all that must be read
-    q_ops = S_CHUNK * G_OFF * B_ECOG * (M_ECOG**2 + 3 * M_ECOG)
+    q_ops = S_CHUNK * G_OFF * B_ECOG * (M_ECOG**2 + 3 * M_ECOG)  # as qf_bound counts them
     timed = {
         "gibbs (8,512,100)": (
             lambda: ck.gibbs_cuda(x, Z, ell_x, ell_z, 1.0),
@@ -1311,8 +1432,7 @@ def main() -> int:
         "quadform_diag (8,3003,100,100)x(8,100,512)": (
             lambda: ck.quadform_diag_cuda(A, W), lambda: ck.quadform_diag_plain(A, W),
             lambda: torch.einsum("smn,sgmk->sgnk", A, W).square().sum(-1), 1,
-            bound_ms(4 * (S_CHUNK * M_ECOG * B_ECOG + S_CHUNK * G_OFF * M_ECOG * (M_ECOG + 1) // 2
-                          + S_CHUNK * G_OFF * B_ECOG), q_ops)),
+            qf_bound(S_CHUNK, G_OFF, M_ECOG, B_ECOG)),
     }
     times = {}
     for name, (kern, plain, lib, inner, (b_ms, b_by)) in timed.items():
@@ -1357,7 +1477,8 @@ def main() -> int:
     fb_launched, fb_metrics, svc_K = fb_svc_nuts(ck, dev, smi)
     print(f"SVC NUTS phase {time.perf_counter() - t0:.1f} s; launches {fb_launched}")
     fb = fb_kernel_checks(ck, gen, dev, svc_K)
-    more = {"cholesky": cholesky_routes(ck, gen, dev, smi), "kron_mv": kron_layouts(ck, gen, dev, smi)}
+    more = {"cholesky": cholesky_routes(ck, gen, dev, smi), "kron_mv": kron_layouts(ck, gen, dev, smi),
+            "quadform_diag": qf_rows, "gibbs": gibbs_rows}
     t0 = time.perf_counter()
     sn_launched = fb_snmgp(ck, dev, smi)
     print(f"SNMGP phase {time.perf_counter() - t0:.1f} s; launches {sn_launched}")
@@ -1376,12 +1497,12 @@ def main() -> int:
     tpu = "collaborative_nonstationary_multivariate_gaussian_process_tpu/ops/pallas_kernels.py"
     tc_bounds = {}
     rows = [
-        ("gibbs", f"{tpu}:93", max(gibbs_errs)),
+        ("gibbs", f"{tpu}:93", max(gibbs_errs + [gibbs_err])),
         ("rbf", f"{tpu}:143", fb["rbf"][1]),
         ("kron_mv", f"{tpu}:189", fb["kron_mv"][1]),
         ("cholesky", f"{tpu}:273", fb["cholesky"][1]),
         ("chol_inv", f"{tpu}:357", max(chol_err, fb["chol_inv (4,200,200)"][1])),
-        ("quadform_diag", f"{tpu}:577", qf_err),
+        ("quadform_diag", f"{tpu}:577", max(qf_err, qf64_err)),
     ]
     for n, line in (("quadform_diag_dw", 648), ("quadform_diag_da", 667)):
         rows.append((n, f"{tpu}:{line}", max(backward[n][1], backward200[n][1])))

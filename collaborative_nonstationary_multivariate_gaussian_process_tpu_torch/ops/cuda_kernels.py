@@ -287,8 +287,6 @@ def gibbs_cuda(x1, x2, ell1, ell2, scale2=1.0):
     l2 = ell2.expand(s, m).contiguous()
     p1, p2 = p1.contiguous(), p2.contiguous()
     device = _check_cuda_f32("gibbs", p1, p2, l1, l2)
-    if s > 65535 or (n + 31) // 32 > 65535:
-        raise ValueError(f"gibbs: grid too large for S={s}, N={n}")
     out = torch.empty((s, n, m), dtype=torch.float32, device=device)
     if out.numel():
         _launch(
@@ -582,18 +580,19 @@ def _quadform_operands(name, A, W, vbar=None):
 
 def quadform_diag_cuda(A, W):
     """`quadform_diag_plain` through `csrc/quadform_diag.cu` for CUDA float32
-    tensors (M <= max_m("quadform_diag")), without the (G, N, M)
-    intermediate; `quadform_diag_plain` for CPU tensors.
+    tensors (M <= max_m("quadform_diag"), ~800 on the H100), without the
+    (G, N, M) intermediate; `quadform_diag_plain` for CPU tensors.
 
     W must be lower-triangular in its last two dims, as it is on the path
-    (W = Lp^-1 @ tril(sqrt)): the kernel reads only that triangle and skips
-    the products with the zeros above it, half the dense work.
+    (W = Lp^-1 @ tril(sqrt)): the kernel reads only that triangle (what
+    lies above it is taken as zero) and skips most of the products with its
+    zeros.
     """
     if not A.is_cuda:
         return quadform_diag_plain(A, W)
     (Ab, Wb), (s, g, m, n), batched, device = _quadform_operands("quadform_diag", A, W)
-    V = torch.empty((s, g, n), dtype=torch.float32, device=device)
-    if V.numel():
+    V = (torch.empty if m else torch.zeros)((s, g, n), dtype=torch.float32, device=device)
+    if V.numel() and m:
         _launch("quadform_diag", device, Ab.data_ptr(), Wb.data_ptr(), V.data_ptr(), s, g, m, n)
     return V if batched else V[0]
 

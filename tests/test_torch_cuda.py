@@ -64,6 +64,35 @@ def test_gibbs_kernel_matches_plain(dev, S, n, m, d):
     assert torch.allclose(K1, ck.gibbs_plain(x1[:, 0], x2[:, 0], l1[0], l2[0]), rtol=1e-5, atol=1e-30)
 
 
+@pytest.mark.parametrize(
+    "S, n, m, d",
+    [(1, 5, 7, 1), (2, 33, 101, 1), (3, 17, 6, 2), (1, 40, 99, 3), (2, 64, 3, 4), (1, 512, 100, 1),
+     (4, 100, 100, 1), (8, 512, 100, 1), (1, 2, 1, 2), (4, 1024, 1024, 1)],
+)
+def test_gibbs_kernel_rows_and_tails(dev, S, n, m, d):
+    """The flat-output kernel: M % 4 != 0 (four outputs that cross a row,
+    and a scalar tail of S N M mod 4), M below 4, d = 1..4, S = 1, the
+    path's (4, 100, 100), (8, 512, 100) and SNMGP's (4, 1024, 1024); rtol
+    1e-5 against the plain version, as chip_smoke.py holds it."""
+    g = _gen(dev, n * m + d)
+    x1 = 3.0 * torch.rand(n, d, device=dev, generator=g)
+    x2 = 3.0 * torch.rand(m, d, device=dev, generator=g)
+    l1 = torch.exp(0.3 * torch.randn(S, n, device=dev, generator=g))
+    l2 = torch.exp(0.3 * torch.randn(S, m, device=dev, generator=g))
+    before = ck.LAUNCHES["gibbs"]
+    K = ck.gibbs_cuda(x1, x2, l1, l2, 0.7)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["gibbs"] == before + 1 and K.shape == (S, n, m)
+    ref = ck.gibbs_plain(x1, x2, l1, l2, 0.7)
+    assert torch.isfinite(K).all()
+    assert float(((K - ref).abs() - 1e-5 * ref.abs() - 1e-30).max()) <= 0.0
+    # lengthscales that start one float into their storage (no 16-byte alignment)
+    l1s = torch.cat([l1.new_ones(1), l1[0]])[1:]
+    l2s = torch.cat([l2.new_ones(1), l2[0]])[1:]
+    K1 = ck.gibbs_cuda(x1, x2, l1s, l2s, 0.7)
+    assert torch.equal(K1, K[0])
+
+
 def _spd(dev, batch, m, seed):
     g = _gen(dev, seed)
     A = torch.randn(batch, m, m, device=dev, generator=g)
@@ -109,6 +138,94 @@ def test_quadform_kernel_matches_plain(dev, S, M, N, G):
     assert _close(V, ck.quadform_diag_plain(A, Wl), 1e-4)
     V0 = ck.quadform_diag_cuda(A[0], W[0])
     assert V0.shape == (G, N) and _close(V0, ck.quadform_diag_plain(A[0], Wl[0]), 1e-4)
+
+
+def _path_qf_inputs(dev, M, N, G, seed):
+    """A = Lp^-1 K_zx and W_g = Lp^-1 tril(S_g) of the RBF prior of
+    lengthscale 40 on Z = linspace(0, 800, M) (+ 1e-4 jitter), inputs on
+    the ECoG time axis: the path's kind of inputs, where C = A^T W cancels
+    (W's entries ~100x C's); float32 on the card."""
+    r = np.random.default_rng(seed)
+    Z = np.linspace(0.0, 800.0, M)
+    x = np.sort(r.uniform(0.0, 800.0, N))
+    k = lambda a, b: np.exp(-0.5 * ((a[:, None] - b[None, :]) / 40.0) ** 2)  # noqa: E731
+    Lp_inv = np.linalg.solve(np.linalg.cholesky(k(Z, Z) + 1e-4 * np.eye(M)), np.eye(M))
+    S = np.tril(0.1 * r.standard_normal((G, M, M))) + np.eye(M)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    return f32(Lp_inv @ k(Z, x)), f32(np.tril(Lp_inv @ S))
+
+
+@pytest.mark.parametrize(
+    "S, G, M, N",
+    [(1, 15, 100, 2000), (1, 6, 100, 2000), (1, 78, 100, 512), (1, 3003, 100, 512),
+     (2, 40, 200, 512), (1, 78, 200, 512), (1, 4, 512, 300), (1, 2, 10, 200), (1, 1, 10, 200),
+     (3, 7, 45, 129), (1, 9, 16, 1), (2, 5, 131, 75), (8, 78, 100, 64)],
+)
+def test_quadform_forward_against_float64(dev, S, G, M, N):
+    """6a at the path's shapes (PM2.5-sub's G = 15 and 6 at N = 2000, ECoG's
+    78 and 3003 groups, sample_FY's N = 64, the illustration fit's M = 10)
+    and at M = 200 and 512, an N that is no multiple of the tile and an M
+    that is no multiple of 4 or 16, on random lower-triangular W: at most 3x
+    as far from float64 as the plain float32 version, + 1e-6 of max (the
+    gate of chip_smoke.py); 1e-4 of max against the plain version; two runs
+    bitwise equal."""
+    g = _gen(dev, M * N + G + S)
+    A = torch.randn(S, M, N, device=dev, generator=g)
+    W = 0.1 * torch.randn(S, G, M, M, device=dev, generator=g).tril()
+    before = ck.LAUNCHES["quadform_diag"]
+    V = ck.quadform_diag_cuda(A, W)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["quadform_diag"] == before + 1 and V.shape == (S, G, N)
+    plain = ck.quadform_diag_plain(A, W)
+    ref = ck.quadform_diag_plain(A.double(), W.double())
+    scale = float(ref.abs().max())
+    err_k = float((V.double() - ref).abs().max()) / scale
+    err_p = float((plain.double() - ref).abs().max()) / scale
+    assert err_k <= 3 * err_p + 1e-6, (err_k, err_p)
+    assert _close(V, plain, 1e-4)
+    assert torch.equal(V, ck.quadform_diag_cuda(A, W))
+
+
+@pytest.mark.parametrize("M, N, G", [(100, 512, 78), (200, 512, 78), (100, 2000, 15),
+                                     (100, 512, 3003), (200, 512, 3003)])
+def test_quadform_forward_on_the_path_inputs(dev, M, N, G):
+    """6a on the path's kind of inputs (C cancels), with either register
+    tile: the float64 gate, 3x the plain float32 error + 1e-6 of max.  The
+    kernel picks the tile from the shape (`fills_card` in the source): G =
+    3003 at N = 512 fills the card with the 8-column tile, the smaller G
+    take the 4-column one."""
+    A, W = _path_qf_inputs(dev, M, N, G, M + G)
+    V = ck.quadform_diag_cuda(A, W)
+    ref = ck.quadform_diag_plain(A.double(), W.double())
+    scale = float(ref.abs().max())
+    err_k = float((V.double() - ref).abs().max()) / scale
+    err_p = float((ck.quadform_diag_plain(A, W).double() - ref).abs().max()) / scale
+    assert err_k <= 3 * err_p + 1e-6, (err_k, err_p)
+
+
+def test_quadform_forward_reads_only_the_lower_triangle(dev):
+    """Garbage above W's diagonal (NaN, inf, huge values) changes nothing:
+    the kernel reads the lower triangle and takes the rest as zero."""
+    g = _gen(dev, 7)
+    for M, N in ((100, 512), (37, 75)):
+        A = torch.randn(2, M, N, device=dev, generator=g)
+        W = 0.1 * torch.randn(2, 11, M, M, device=dev, generator=g).tril()
+        upper = torch.ones(M, M, dtype=torch.bool, device=dev).triu(1)
+        junk = torch.randn(2, 11, M, M, device=dev, generator=g) * 1e30
+        junk[..., 0, -1] = float("nan")
+        junk[..., 1, -1] = float("inf")
+        Wj = torch.where(upper, junk, W)
+        assert torch.equal(ck.quadform_diag_cuda(A, Wj), ck.quadform_diag_cuda(A, W))
+        assert _close(ck.quadform_diag_cuda(A, Wj), ck.quadform_diag_plain(A, W), 1e-4)
+
+
+def test_quadform_forward_takes_m_512(dev):
+    """max_m("quadform_diag") >= 512 on the H100, and the kernel at its
+    largest M against the plain version."""
+    assert ck.max_m("quadform_diag") >= 512
+    M = ck.max_m("quadform_diag")
+    A, W, _ = _qf_inputs(dev, 1, M, 70, 2, M)
+    assert _close(ck.quadform_diag_cuda(A, W), ck.quadform_diag_plain(A, W), 1e-4)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
