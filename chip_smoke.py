@@ -29,14 +29,21 @@ the kernels and with the plain versions, and profiles one step; fits
 assertions of `tests/test_dsvi_e2e.py`; times kernels, plain versions, the
 library yardstick and the requests with CUDA events; trains an epoch at
 the reference's ECoG M = 200 (Z = linspace(0, 800, 200)), checks that all
-five kernels were launched, and times its steps on both routes.  Then the
+five kernels were launched, and times its steps on both routes; runs the
+Cholesky-inverse witness study (`chol_inv_witness`: the ECoG gradient gate
+and the card test's small model at ten draws each, on every kernel, on the
+plain versions, with only chol_inv swapped either way and with each of its
+two outputs alone, and the factor alone against float64 and cuSOLVER).  Then the
 fully-Bayesian path: holds the RBF, Cholesky, Kronecker-matvec and
 Cholesky-inverse kernels against float64 runs of their plain versions at
 the path's shapes (the Cholesky-inverse at M = 200 and 1024, NaN on a
 non-PD member; RBF and Cholesky also on the path's own whitening grams;
 the Cholesky on both of its routes at (1, 401), (2, 100), (2, 1024) and
 (4, 2048) with the routes' crossover table; the Kronecker matvec on each
-layout of K, as stored, transposed and shared by the chains);
+layout of K, as stored, transposed and shared by the chains; the
+Cholesky-inverse at (4, 100), (32, 100), (4, 200), (4, 1024) and (4, 2048)
+against float64 and timed against the plain pair, with its routes'
+crossover table);
 runs `scripts/run_mcmc_sim.py`'s default study through the port
 (sim_mnts M=2, N=100; empirical init; the whitened SVC density, dim 401;
 NUTS, 4 chains, max depth 8, diagonal mass; its 400 warmup and 400 samples
@@ -226,10 +233,11 @@ def ecog_request(seed: int):
     return [np.sort(rng.uniform(0.0, 800.0, n)) for n in sizes]
 
 
-def profile_breakdown(fn, top: int = 8) -> None:
+def profile_breakdown(fn, top: int = 8, watch=()) -> None:
     """Profile one call: wall time, summed device-kernel time (its share of
     the wall is the device's busy share), the number of kernels and those
-    that take most.  The optimizer's own annotation range on the device
+    that take most, and any kernel whose name holds one of `watch` (or
+    that none ran).  The optimizer's own annotation range on the device
     timeline ("Optimizer.step#...") spans kernels already counted, so it is
     left out."""
     from torch.autograd import DeviceType
@@ -250,15 +258,21 @@ def profile_breakdown(fn, top: int = 8) -> None:
         return
     print(f"profile: wall {wall:.3f} ms, device kernels {busy:.3f} ms in "
           f"{sum(e.count for e in events)} kernels (busy {busy / wall:.1%}, idle {1 - busy / wall:.1%})")
-    for e in sorted(events, key=lambda e: -e.device_time_total)[:top]:
+    ranked = sorted(events, key=lambda e: -e.device_time_total)
+    for e in ranked[:top]:
         print(f"profile:   {e.device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    for w in watch:
+        hits = [e for e in ranked if w in e.key]
+        print(f"profile:   {w}: " + ("; ".join(f"{e.device_time_total / 1e3:.3f} ms x{e.count} "
+                                               f"{e.key[:60]}" for e in hits) or "no kernel ran"))
 
 
 @contextmanager
-def plain_versions(ck):
-    """Route every kernel wrapper to its plain PyTorch version."""
+def plain_versions(ck, names=None):
+    """Route every kernel wrapper (or the named ones) to its plain PyTorch
+    version."""
     with ExitStack() as stack:
-        for name in ck.KERNELS:
+        for name in ck.KERNELS if names is None else names:
             stack.enter_context(mock.patch.object(ck, f"{name}_cuda", getattr(ck, f"{name}_plain")))
         yield
 
@@ -517,15 +531,11 @@ def training_rates(ck, td, tc, name, data, D, B):
     return res
 
 
-def ecog_gradients(ck, tc, x, y, idx, Z, gen):
-    """Every parameter's gradient on one batch and one noise draw, with the
-    lengthscales set to 40 (dense priors), kernels and plain versions in f32
-    against the plain versions in float64.  A scalar hyperparameter's
-    gradient is a sum of many large terms that cancel, so one f32 run's
-    error is a noisy witness: the batch rows (and their noise) are also
-    taken in two other orders, the same sum rounded otherwise, and the
-    kernels' error may be at most 3x the worst plain error of the three
-    orders + 1e-5 of max."""
+def ecog_problem(tc, x, y, idx, Z, gen):
+    """The ECoG gradient check's problem: `init_params` with the
+    lengthscales set to 40 (dense priors), and one batch, its noise and two
+    more row orders drawn from `gen`.  Returns grads(dtype, order) ->
+    (loss, every parameter's gradient)."""
     dev = x.device
     params = tc.init_params(torch.Generator(device=dev).manual_seed(0), D_ECOG, M_ECOG,
                             device=dev)
@@ -549,6 +559,19 @@ def ecog_gradients(ck, tc, x, y, idx, Z, gen):
         loss.backward()
         return float(loss.detach()), [t.grad for t in p]
 
+    return grads, orders
+
+
+def ecog_gradients(ck, tc, x, y, idx, Z, gen):
+    """Every parameter's gradient on one batch and one noise draw, with the
+    lengthscales set to 40 (dense priors), kernels and plain versions in f32
+    against the plain versions in float64.  A scalar hyperparameter's
+    gradient is a sum of many large terms that cancel, so one f32 run's
+    error is a noisy witness: the batch rows (and their noise) are also
+    taken in two other orders, the same sum rounded otherwise, and the
+    kernels' error may be at most 3x the worst plain error of the three
+    orders + 1e-5 of max."""
+    grads, orders = ecog_problem(tc, x, y, idx, Z, gen)
     ck.reset_launches()
     runs_k = [grads(torch.float32, o) for o in orders]
     torch.cuda.synchronize()
@@ -574,6 +597,187 @@ def ecog_gradients(ck, tc, x, y, idx, Z, gen):
               f"{errs_k[1]:.3e}, {errs_k[2]:.3e}), plain " + ", ".join(f"{e:.3e}" for e in errs_p)
               + "; tol 3x the worst plain + 1e-5")
     print(f"ECoG gradients: worst kernel error / tolerance {worst:.3f}")
+
+
+def small_problem(tc, dev, seed):
+    """The small model of `tests/test_torch_cuda.py::
+    test_negative_selbo_backward_on_the_card_matches_plain` (D=3, M=12,
+    B=40), drawn as that test draws it from a generator seeded `seed` (the
+    test's own draw is seed 0).  Returns grads(dtype) -> every parameter's
+    gradient."""
+    D, M, B = 3, 12, 40
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = tc.init_params(g, D, M, device=dev)
+    params = params._replace(
+        mu_v=torch.full((M,), -1.5, device=dev),
+        length_scales_tildeell_log=torch.tensor(-1.5, device=dev),
+        length_scales_L0_log=torch.tensor(-1.2, device=dev),
+        length_scales_L1_log=torch.tensor(-1.0, device=dev),
+    )
+    Z = torch.linspace(0.0, 1.0, M, device=dev)
+    x = torch.rand(B, device=dev, generator=g)
+    idx = torch.randint(0, D, (B,), device=dev, generator=g)
+    y = torch.sin(6 * x)
+    w = torch.ones(B, device=dev)
+    noise = tc.draw_train_noise(g, 1, M, B, D)
+
+    def grads(dtype):
+        p = tc.CNMGPParams(*(t.detach().to(dtype).clone().requires_grad_(True) for t in params))
+        nz = tc.CNMGPNoise(*(None if z is None else z.to(dtype) for z in noise))
+        loss = tc.negative_selbo(p, Z.to(dtype), x.to(dtype), y.to(dtype), idx, w.to(dtype),
+                                 1000.0, nz)
+        loss.backward()
+        return [t.grad for t in p]
+
+    return grads
+
+
+# The chol_inv witness study: ten draws of each witness, each from a
+# generator of its own (seeds WITNESS_SEED + draw for ECoG, draw for the
+# small model), so that no other check of this script changes its inputs.
+WITNESS_DRAWS = 10
+WITNESS_SEED = 100
+
+
+def witness_routes(ck):
+    """The study's routes, each a context that sends kernel wrappers to
+    their plain versions: none, all, only chol_inv, all but chol_inv; then,
+    with every other kernel plain, chol_inv's L with L^-1 solved from it by
+    the library (`solve_triangular`), and the library's L with the kernel's
+    L^-1, which tell which of the two outputs carries a fault."""
+    others = tuple(k for k in ck.KERNELS if k != "chol_inv")
+    kernel = ck.chol_inv_cuda
+
+    def l_only(K):
+        L = kernel(K)[0]
+        eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+        return L, torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+
+    def linv_only(K):
+        return ck.chol_inv_plain(K)[0], kernel(K)[1]
+
+    @contextmanager
+    def hybrid(fn):
+        with plain_versions(ck, others), mock.patch.object(ck, "chol_inv_cuda", fn):
+            yield
+
+    return {"kernels": lambda: plain_versions(ck, ()),
+            "plain": lambda: plain_versions(ck),
+            "chol_inv plain": lambda: plain_versions(ck, ("chol_inv",)),
+            "chol_inv kernel": lambda: plain_versions(ck, others),
+            "kernel L": lambda: hybrid(l_only),
+            "kernel L^-1": lambda: hybrid(linv_only)}
+
+
+def factor_errors(ck, K):
+    """(L, L^-1) of the f32 stack K by the kernel and by cuSOLVER's f32
+    (`chol_inv_plain`), each against float64 factors of the same f32 input:
+    {route: (L error of max, L^-1 error of max, max |L^-1 L - I|, the share
+    of L's and of L^-1's lower-triangle entries equal to the library's bit
+    for bit)} over the members float64 factors."""
+    K = K.reshape(-1, K.shape[-1], K.shape[-1])
+    L64, Li64 = ck.chol_inv_plain(K.double())
+    ok = torch.isfinite(Li64).flatten(1).all(1)
+    eye = torch.eye(K.shape[-1], dtype=torch.float64, device=K.device)
+    lower = torch.ones_like(eye, dtype=torch.bool).tril().expand(int(ok.sum()), -1, -1)
+    Lp, Lip = (t[ok] for t in ck.chol_inv_plain(K))
+    out = {}
+    for route, fn in (("kernel", ck.chol_inv_cuda), ("cuSOLVER", ck.chol_inv_plain)):
+        L, Li = fn(K)
+        L, Li = L[ok], Li[ok]
+        out[route] = (rel_to_max(L, L64[ok])[1], rel_to_max(Li, Li64[ok])[1],
+                      float((Li.double() @ L.double() - eye).abs().max()),
+                      float((L == Lp)[lower].float().mean()), float((Li == Lip)[lower].float().mean()))
+    return out
+
+
+def _worst(ratios, fields):
+    i = int(np.argmax(ratios))
+    return float(ratios[i]), fields[i]
+
+
+def chol_inv_witness(ck, tc, dev, smi):
+    """ROADMAP Queue 3 item 9's study.  Witness (a) is the ECoG gradient
+    gate (`ecog_gradients`: lengthscales 40, three row orders, tolerance 3x
+    the worst plain error + 1e-5 of max), witness (b) the card test's small
+    model (D=3, M=12, B=40, tolerance 3x the plain error + 1e-5 of max).
+    Each draw runs every route of `witness_routes` and prints each route's
+    worst parameter error / tolerance, then the factor alone on the draw's
+    prior stack (the first input chol_inv gets) against float64, for the
+    kernel and for cuSOLVER.  Gate: the kernels pass witness (a) at every
+    draw, and witness (b) at the test's own draw; a failing draw that fails
+    as much (0.9x or more, and above 1) with only chol_inv sent to its plain
+    version is noise from another kernel and is reported, not counted.
+    Returns a summary for the kernels line."""
+    fields = tc.CNMGPParams._fields
+    routes = witness_routes(ck)
+    x, y, idx, Z = ecog_data(dev, M_ECOG)
+    summary = {}
+    print(f"chol_inv witness ({smi}): per draw, each route's worst gradient error / tolerance "
+          f"(parameter), then the factor alone vs float64, of max, kernel / cuSOLVER f32")
+    t0 = time.perf_counter()
+    for witness in ("a", "b"):
+        worst = {r: 0.0 for r in routes}
+        failed, excused, factor = [], [], {"kernel": [0.0] * 3, "cuSOLVER": [0.0] * 3}
+        equal = [1.0, 1.0]
+        for d in range(WITNESS_DRAWS):
+            calls = {}
+            if witness == "a":
+                gen = torch.Generator(device=dev).manual_seed(WITNESS_SEED + d)
+                grads_o, orders = ecog_problem(tc, x, y, idx, Z, gen)
+                grads = lambda dtype, _g=grads_o, _o=orders: _g(dtype, _o[0])[1]  # noqa: E731
+                with plain_versions(ck):
+                    g_p = [grads_o(torch.float32, o)[1] for o in orders]
+            else:
+                grads = small_problem(tc, dev, d)
+                with plain_versions(ck):
+                    g_p = [grads(torch.float32)]
+            g64 = grads(torch.float64)
+            scale = [float(g.abs().max()) for g in g64]
+            err = lambda gs: np.array([rel_to_max(a, b)[0] for a, b in zip(gs, g64)])  # noqa: E731
+            err_p = np.max([err(g) for g in g_p], axis=0)
+            tol = 3 * err_p + 1e-5 * np.array(scale)
+            ratio = {}
+            for route, context in routes.items():
+                if route == "plain":
+                    gs = g_p[0]
+                else:
+                    with context(), recording(ck, ("chol_inv",) if route == "kernels" else (),
+                                              calls):
+                        gs = grads(torch.float32)
+                ratio[route] = _worst(err(gs) / tol, fields)
+                worst[route] = max(worst[route], ratio[route][0])
+            fe = factor_errors(ck, calls["chol_inv"][0][0])
+            for r, v in fe.items():
+                factor[r] = [max(a, b) for a, b in zip(factor[r], v[:3])]
+            equal = [min(a, b) for a, b in zip(equal, fe["kernel"][3:])]
+            k, c = ratio["kernels"][0], ratio["chol_inv plain"][0]
+            if k > 1.0:
+                (excused if c > 1.0 and c >= 0.9 * k else failed).append(d)
+            print(f"  witness ({witness}) draw {d}: " + ", ".join(
+                f"{r} {v:.3f} ({n})" for r, (v, n) in ratio.items())
+                + "; L {:.3e} / {:.3e}, L^-1 {:.3e} / {:.3e}, |L^-1 L - I| {:.3e} / {:.3e}; "
+                  "the kernel's L and L^-1 equal to the library's bit for bit at {:.1%} and "
+                  "{:.1%} of the entries".format(
+                    fe["kernel"][0], fe["cuSOLVER"][0], fe["kernel"][1], fe["cuSOLVER"][1],
+                    fe["kernel"][2], fe["cuSOLVER"][2], fe["kernel"][3], fe["kernel"][4]),
+                flush=True)
+        summary[witness] = {"worst": worst, "failed": failed, "excused": excused,
+                            "factor_worst": factor, "least_equal": equal}
+        print(f"  witness ({witness}): worst error / tolerance over {WITNESS_DRAWS} draws "
+              + ", ".join(f"{r} {v:.3f}" for r, v in worst.items())
+              + f"; kernels fail at draws {failed}, excused (as bad with chol_inv plain) {excused}"
+              + "; factor worst kernel L {:.3e} L^-1 {:.3e} |L^-1 L - I| {:.3e}, cuSOLVER L "
+                "{:.3e} L^-1 {:.3e} |L^-1 L - I| {:.3e}".format(*factor["kernel"],
+                                                                 *factor["cuSOLVER"])
+              + "; least share equal to the library bit for bit L {:.1%}, L^-1 {:.1%}".format(*equal))
+    print(f"chol_inv witness phase {time.perf_counter() - t0:.1f} s")
+    check(not summary["a"]["failed"],
+          f"chol_inv witness (a), ECoG gradient gate at {WITNESS_DRAWS} draws: the kernels fail "
+          f"at draws {summary['a']['failed']} (excused {summary['a']['excused']})")
+    check(0 not in summary["b"]["failed"],
+          "chol_inv witness (b), the card test's small model at its own draw (0): kernels pass")
+    return summary
 
 
 def illustration_fit(ck, td, tp, sim):
@@ -818,6 +1022,53 @@ def timing_entry(what, kern, plain, lib, bound, inner=3):
             "bound_ms": bound[0], "bound_by": bound[1]}
 
 
+# chol_inv's shapes, (batch, M): the DSVI prior stack of one draw, the
+# serving chunk's stack, the SVC covariance, the dense Kronecker route at
+# MN = 1024 (the path's largest) and 2048 (the comparison); the sizes at
+# batch 4 where its two routes are compared
+CHOL_INV_SHAPES = ((4, 100), (32, 100), (4, 200), (4, 1024), (4, 2048))
+CHOL_INV_PATH_SHAPES = CHOL_INV_SHAPES[:4]
+CHOL_INV_CROSSOVER_SIZES = (32, 64, 100, 128, 160, 200, 208, 216, 224, 240)
+
+
+def chol_inv_shapes(ck, gen, dev, smi):
+    """csrc/chol_inv.cu at each of CHOL_INV_SHAPES on its default route:
+    (L, L^-1) against float64 factors of the same input (3x the plain f32
+    error + 1e-6 of max), then timed against the plain pair (`cholesky_ex`
+    + `solve_triangular`; no one library call computes both) and checked
+    faster at every path shape.  Then both routes at batch 4 where the
+    crossover lies.  Returns the timing entries."""
+    entries = []
+    for b, m in CHOL_INV_SHAPES:
+        K = _spd(gen, dev, b, m)
+        L, Li = ck.chol_inv_cuda(K)
+        (Lp, Lip), (L64, Li64) = ck.chol_inv_plain(K), ck.chol_inv_plain(K.double())
+        torch.cuda.synchronize()
+        shape = f"({b}, {m}, {m}) {ck.chol_inv_route(m)}"
+        witnessed("chol_inv L", L, Lp, L64, 1e-6, shape)
+        witnessed("chol_inv L^-1", Li, Lip, Li64, 1e-6, shape)
+        del L, Li, Lp, Lip, L64, Li64
+        bound = bound_ms(4 * b * (m * (m + 1) // 2 + 2 * m * m), b * 2 * m**3 / 3)
+        e = timing_entry(f"chol_inv ({b},{m},{m}) {ck.chol_inv_route(m)}",
+                         lambda: ck.chol_inv_cuda(K), lambda: ck.chol_inv_plain(K), None, bound,
+                         inner=3 if m <= 1024 else 1)
+        entries.append(e)
+        if (b, m) in CHOL_INV_PATH_SHAPES:
+            check(e["ms"] < e["plain_ms"], f"chol_inv ({b},{m},{m}): kernel {e['ms']:.4f} ms "
+                  f"faster than the plain pair {e['plain_ms']:.4f} ms ({smi})")
+        del K
+    print(f"chol_inv crossover, batch 4, device ms (host launch included) ({smi}):")
+    for m in CHOL_INV_CROSSOVER_SIZES:
+        K = _spd(gen, dev, 4, m)
+        row = {r: (device_ms(lambda: ck.chol_inv_cuda(K, r), inner=3),
+                   back_to_back_ms(lambda: ck.chol_inv_cuda(K, r), inner=3))
+               for r in ck.CHOL_INV_ROUTES}
+        print(f"  M={m}: " + ", ".join(f"{r} {t[0]:.4f} ({t[1]:.4f})" for r, t in row.items())
+              + f"; default {ck.chol_inv_route(m)}", flush=True)
+        entries.append({"at": f"crossover M={m}", **{f"{r}_ms": t[0] for r, t in row.items()}})
+    return entries
+
+
 def cholesky_routes(ck, gen, dev, smi):
     """csrc/cholesky.cu on each of its routes at the path's shapes (the
     dense NUTS metric (1, 401, 401), the SVC whitening (2, 100, 100), the
@@ -838,6 +1089,8 @@ def cholesky_routes(ck, gen, dev, smi):
             L = ck.cholesky_cuda(K, route)
             torch.cuda.synchronize()
             witnessed(f"cholesky {route}", L, Lp, L64, 1e-6, f"({b}, {m}, {m})")
+            print(f"  cholesky {route} ({b}, {m}, {m}): L equal to cuSOLVER's bit for bit at "
+                  f"{float((L == Lp)[lower.expand(b, m, m)].float().mean()):.1%} of the entries")
             back = rel_to_max(L.double() @ L.double().mT, K.double())[1]
             check(back <= m * EPS32 and torch.equal(L, L.tril()),
                   f"cholesky {route} ({b}, {m}, {m}): |L L^T - K|/|K| {back:.3e}, tol M eps; "
@@ -1113,11 +1366,18 @@ def fb_svc_nuts(ck, dev, smi):
     print(f"time of one value_and_grad of the SVC density (4 chains): "
           f"{host_ms(lambda: value_and_grad(lp, q)):.3f} ms host clock, median of 20 ({smi})")
     ck.reset_launches()
-    value_and_grad(lp, q)
+    grad_calls = {}
+    with recording(ck, ("chol_inv",), grad_calls):
+        v_q, _ = value_and_grad(lp, q)
     torch.cuda.synchronize()
-    print(f"launches of one value_and_grad of the SVC density (4 chains): {dict(ck.LAUNCHES)}")
+    print(f"launches of one value_and_grad of the SVC density (4 chains): {dict(ck.LAUNCHES)}; "
+          f"log-posterior {[round(float(t), 3) for t in v_q]}")
+    S_q = grad_calls["chol_inv"][0][0]
+    print(f"chol_inv on this gradient's {tuple(S_q.shape)} covariance: "
+          f"{device_ms(lambda: ck.chol_inv_cuda(S_q), inner=3):.4f} ms on the device, plain "
+          f"{device_ms(lambda: ck.chol_inv_plain(S_q), inner=3):.4f} ms ({smi})")
     print("profile of one value_and_grad (a leapfrog's gradient), 4 chains:")
-    profile_breakdown(lambda: value_and_grad(lp, q))
+    profile_breakdown(lambda: value_and_grad(lp, q), watch=("chol_inv", "gibbs"))
     with plain_versions(ck):
         print(f"the same with the plain versions: {host_ms(lambda: value_and_grad(lp, q)):.3f} ms")
     p = ld.svc_unwhiten(q0, xt, h["mu_tilde_l"], h["mu_L"], chol_l, chol_L, 2)
@@ -1468,6 +1728,7 @@ def main() -> int:
     trained = training(ck, dsvi, cnmgp, predict, sim, dev, gen, smi)
     print(f"launches in one ECoG training epoch: {trained}")
     trained200 = ecog_m200(ck, dsvi, cnmgp, dev, smi)
+    witness = chol_inv_witness(ck, cnmgp, dev, smi)
     print(f"launches in one ECoG M=200 training epoch: {trained200}")
     for k in ck.KERNELS:
         launches[k] += trained[k] + trained200[k]
@@ -1478,7 +1739,8 @@ def main() -> int:
     print(f"SVC NUTS phase {time.perf_counter() - t0:.1f} s; launches {fb_launched}")
     fb = fb_kernel_checks(ck, gen, dev, svc_K)
     more = {"cholesky": cholesky_routes(ck, gen, dev, smi), "kron_mv": kron_layouts(ck, gen, dev, smi),
-            "quadform_diag": qf_rows, "gibbs": gibbs_rows}
+            "quadform_diag": qf_rows, "gibbs": gibbs_rows,
+            "chol_inv": chol_inv_shapes(ck, torch.Generator(device=dev).manual_seed(9), dev, smi)}
     t0 = time.perf_counter()
     sn_launched = fb_snmgp(ck, dev, smi)
     print(f"SNMGP phase {time.perf_counter() - t0:.1f} s; launches {sn_launched}")
@@ -1518,6 +1780,7 @@ def main() -> int:
                         "launches": launches[n], "max_abs_err": e, "ms": k_ms, "plain_ms": p_ms,
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
                         **tc_bounds.get(n, {}), "more": more.get(n, [])})
+    kernels[[k["name"] for k in kernels].index("chol_inv")]["witness"] = witness
     print(json.dumps({"kernels": kernels}))
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
@@ -1528,6 +1791,28 @@ def main() -> int:
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
     return 0
+
+
+def witness_main() -> int:
+    """The chol_inv witness phase alone, on the port package beside this
+    script (a checkout of another commit, for a before-and-after):
+    python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.witness_main())'"""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import cnmgp
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    ck.build(TRAIN_KERNELS)
+    chol_inv_witness(ck, cnmgp, torch.device("cuda"), smi)
+    return 1 if FAILURES else 0
 
 
 if __name__ == "__main__":

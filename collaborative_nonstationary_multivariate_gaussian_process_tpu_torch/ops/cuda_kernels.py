@@ -2,7 +2,7 @@
 
 The counterpart of the JAX package's `ops/pallas_kernels.py`.  Every TPU
 kernel there has one here (the Gibbs and RBF grams, the Kronecker matvec,
-the batched Cholesky, the blocked fused Cholesky + triangular inverse, the
+the batched Cholesky, the fused Cholesky + triangular inverse, the
 variance quadratic form and its two backward kernels), and each has:
 
   - a wrapper (`gibbs_cuda`, `rbf_cuda`, `kron_mv_cuda`, `cholesky_cuda`,
@@ -22,8 +22,8 @@ the plain version otherwise (float64, a CPU tensor, a Gibbs input of
 dimension above 4, a 2-D RBF input), as the JAX package takes Pallas only
 for float32.
 
-Sources live in `../csrc/*.cu` (with the shared headers `chol_blocked.cuh`
-and `qf_mma.cuh`).
+Sources live in `../csrc/*.cu` (with the shared headers `chol_blocked.cuh`,
+`chol_multi_cta.cuh` and `qf_mma.cuh`).
 Each is compiled on first use with `nvcc` for `sm_90a` into `build/` at the
 repository root (one shared library per source, named by a hash of the
 sources and flags) and bound with `ctypes`; every C entry returns
@@ -63,6 +63,9 @@ __all__ = [
     "CHOLESKY_ROUTES",
     "CHOLESKY_CROSSOVER_M",
     "chol_inv_cuda",
+    "chol_inv_route",
+    "CHOL_INV_ROUTES",
+    "CHOL_INV_CROSSOVER_M",
     "chol_inv_plain",
     "cholesky_nan",
     "quadform_diag_cuda",
@@ -87,6 +90,15 @@ CHOLESKY_ROUTES = {"one_block": 0, "multi_cta": 1}
 # M = 128 on (chip_smoke.py's crossover table; PERF.md).
 CHOLESKY_CROSSOVER_M = 128
 
+# The routes of `csrc/chol_inv.cu` (its `route` argument): the whole matrix
+# resident in one CTA's shared memory (M up to ~240 on the H100), or each
+# matrix spread over many CTAs.
+CHOL_INV_ROUTES = {"resident": 0, "multi_cta": 1}
+# Smallest M that takes the multi-CTA route by default: on the H100 at batch
+# 4 the resident route is faster through M = 224 and the multi-CTA one at
+# M = 240, its limit (chip_smoke.py's crossover table; PERF.md).
+CHOL_INV_CROSSOVER_M = 240
+
 # The largest input dimension the Gibbs kernel takes (the JAX function takes any).
 GIBBS_MAX_DIM = 4
 
@@ -110,8 +122,8 @@ _ARGTYPES = {
     "kron_mv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _P],
     # a, l_out, flags, diag, batch, m, route, stream
     "cholesky": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # a, l_out, linv_out, batch, m, stream
-    "chol_inv": [_P, _P, _P, _I, _I, _P],
+    # a, l_out, linv_out, lw, xw, flags, diag, dinv, batch, m, route, stream
+    "chol_inv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # A, W, V, s, g, m, n, stream
     "quadform_diag": [_P, _P, _P, _I, _I, _I, _I, _P],
     # A, W, vbar, dW, s, g, m, n, stream
@@ -184,19 +196,21 @@ def _library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def max_m(name: str, device=None) -> int:
+def max_m(name: str, device=None, route=None) -> int:
     """Largest M that kernel `name` (any of `KERNELS` but "gibbs" and
     "rbf") takes on `device`: the layout of its shared memory
     (`smem_bytes` in its source) meets the card's opt-in limit; for
     "kron_mv", the largest task dimension it keeps in registers; for
-    "cholesky", its multi-CTA route's limit (the one-block route takes M up
-    to ~3400)."""
+    "cholesky" and "chol_inv", their multi-CTA route's limit, or with
+    `route` that route's (cholesky's "one_block" takes M up to ~3400,
+    chol_inv's "resident" 240).  Queried once per device."""
     device = torch.device("cuda" if device is None else device)
     index = torch.cuda.current_device() if device.index is None else device.index
-    key = (name, index)
+    query = f"{name}_max_m" if route in (None, "multi_cta") else f"{name}_{route}_max_m"
+    key = (query, index)
     if key not in _MAX_M:
         with torch.cuda.device(index):
-            m = getattr(_library(name), f"{name}_max_m")()
+            m = getattr(_library(name), query)()
         if m < 0:
             raise RuntimeError(f"{name}: could not query device {index}'s shared memory")
         _MAX_M[key] = m
@@ -476,11 +490,7 @@ def cholesky_cuda(K, route=None):
         return cholesky_plain(K)
     Kb, m, device = _square_batch("cholesky", K)
     route = cholesky_route(m, route)
-    if route == "one_block":
-        with torch.cuda.device(device):
-            limit = _library("cholesky").cholesky_one_block_max_m()
-    else:
-        limit = max_m("cholesky", device)
+    limit = max_m("cholesky", device, route)
     if m > limit or (route != "one_block" and Kb.shape[0] > 65535):
         raise ValueError(f"cholesky: M={m} above the {route} route's {limit}, or "
                          f"{Kb.shape[0]} matrices")
@@ -520,19 +530,45 @@ def chol_inv_plain(K):
     return L, torch.where(failed, torch.full_like(Linv, float("nan")), Linv)
 
 
-def chol_inv_cuda(K):
-    """(L, L^-1) through the blocked `csrc/chol_inv.cu` for a CUDA float32 K
-    (..., M, M), any M <= max_m("chol_inv") (~3400), with the failure
-    semantics of `chol_inv_plain`; `chol_inv_plain` for a CPU tensor."""
+def chol_inv_route(m: int, route=None) -> str:
+    """The route of `csrc/chol_inv.cu` for matrices of size m: `route` if
+    given, else "resident" below CHOL_INV_CROSSOVER_M and "multi_cta" from
+    it on."""
+    if route is None:
+        route = "multi_cta" if m >= CHOL_INV_CROSSOVER_M else "resident"
+    if route not in CHOL_INV_ROUTES:
+        raise ValueError(f"chol_inv: route {route!r} is not one of {tuple(CHOL_INV_ROUTES)}")
+    return route
+
+
+def chol_inv_cuda(K, route=None):
+    """(L, L^-1) through `csrc/chol_inv.cu` for a CUDA float32 K (..., M,
+    M), M <= max_m("chol_inv"), with the failure semantics of
+    `chol_inv_plain`, on the route `chol_inv_route(M, route)` picks (the
+    resident route takes M <= ~240; the multi-CTA route pads M to a multiple
+    of 64 in a workspace unless it is one); `chol_inv_plain` for a CPU
+    tensor."""
     if not K.is_cuda:
         return chol_inv_plain(K)
     Kb, m, device = _square_batch("chol_inv", K)
-    if m > max_m("chol_inv", device):
-        raise ValueError(f"chol_inv: M={m} above max_m {max_m('chol_inv', device)}")
+    route = chol_inv_route(m, route)
+    nb = Kb.shape[0]
+    limit = max_m("chol_inv", device, route)
+    if m > limit or nb > 65535:
+        raise ValueError(f"chol_inv: M={m} above the {route} route's {limit}, or {nb} matrices")
     L = torch.empty_like(Kb)
     Linv = torch.empty_like(Kb)
     if Kb.numel():
-        _launch("chol_inv", device, Kb.data_ptr(), L.data_ptr(), Linv.data_ptr(), Kb.shape[0], m)
+        work = [None] * 5  # lw, xw, flags, diag, dinv
+        if route == "multi_cta":
+            mp = -(-m // 64) * 64
+            lw, xw = (L, Linv) if mp == m else (Kb.new_empty((nb, mp, mp)) for _ in range(2))
+            flags = torch.zeros(nb, dtype=torch.int32, device=device)
+            diag = Kb.new_empty((nb, mp // 32, 32, 32))
+            dinv = Kb.new_empty((nb, mp // 64, 64, 64))
+            work = [t.data_ptr() for t in (lw, xw, flags, diag, dinv)]
+        _launch("chol_inv", device, Kb.data_ptr(), L.data_ptr(), Linv.data_ptr(), *work, nb, m,
+                CHOL_INV_ROUTES[route])
     return L.reshape(K.shape), Linv.reshape(K.shape)
 
 

@@ -602,3 +602,121 @@ def test_svc_whitened_backward_on_the_card_matches_plain(dev):
         err_k = float((res[0][i].double() - res[2][i]).abs().max())
         err_p = float((res[1][i].double() - res[2][i]).abs().max())
         assert err_k <= 3 * err_p + 1e-4 * scale, (i, err_k, err_p, scale)
+
+
+# ---------------------------------------------------------------------------
+# The fused Cholesky-inverse on its two routes
+# ---------------------------------------------------------------------------
+
+
+def _witnessed_chol_inv(K, L, Linv, floor=1e-6):
+    """(L, L^-1) of the f32 K against float64 factors of the same input: at
+    most 3x the plain f32 version's error + floor of max, each output."""
+    Lp, Lip = ck.chol_inv_plain(K)
+    L64, Li64 = ck.chol_inv_plain(K.double())
+    for got, plain, ref in ((L, Lp, L64), (Linv, Lip, Li64)):
+        err_k = float((got.double() - ref).abs().max())
+        err_p = float((plain.double() - ref).abs().max())
+        assert err_k <= 3 * err_p + floor * float(ref.abs().max()), (err_k, err_p)
+
+
+@pytest.mark.parametrize(
+    "route, batch, m",
+    [(r, b, m) for r in sorted(ck.CHOL_INV_ROUTES)
+     for b, m in [(1, 1), (3, 37), (2, 100), (4, 200), (2, 240), (2, 1024)]
+     if not (r == "resident" and m > 240)],
+)
+def test_chol_inv_routes_against_float64(dev, route, batch, m):
+    """Each route on both sides of the crossover, at M = 1, a ragged M, the
+    path's 100 and 200, the resident route's limit 240 and (multi-CTA) 1024:
+    one launch of chol_inv and none of cholesky, zeros above the diagonal,
+    both outputs held against float64."""
+    K = _spd(dev, batch, m, m + 7)
+    before = dict(ck.LAUNCHES)
+    L, Linv = ck.chol_inv_cuda(K, route)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["chol_inv"] == before["chol_inv"] + 1
+    assert ck.LAUNCHES["cholesky"] == before["cholesky"]
+    assert torch.equal(L, L.tril()) and torch.equal(Linv, Linv.tril())
+    _witnessed_chol_inv(K, L, Linv)
+
+
+def test_chol_inv_multi_cta_at_the_dense_kronecker_size(dev):
+    K = _spd(dev, 4, 2048, 11)
+    L, Linv = ck.chol_inv_cuda(K, "multi_cta")
+    torch.cuda.synchronize()
+    assert torch.equal(L, L.tril()) and torch.equal(Linv, Linv.tril())
+    _witnessed_chol_inv(K, L, Linv)
+
+
+@pytest.mark.parametrize("route", sorted(ck.CHOL_INV_ROUTES))
+@pytest.mark.parametrize("m, where", [(100, 0), (100, 99), (200, 199), (37, 0), (37, 36), (200, 64)])
+def test_chol_inv_failed_member_on_each_route(dev, route, m, where):
+    """A member whose pivot fails at the first column, in the last block or
+    in between, beside healthy members: NaN in its L's lower triangle (zero
+    above) and in all of its L^-1, as the plain version gives; the
+    neighbours unchanged from a batch without it."""
+    K = _spd(dev, 3, m, m + where)
+    Kbad = K.clone()
+    Kbad[1, where, where] = -1.0
+    L, Linv = ck.chol_inv_cuda(Kbad, route)
+    L_ref, Linv_ref = ck.chol_inv_plain(Kbad)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(L), torch.isnan(L_ref))
+    assert torch.equal(torch.isnan(Linv), torch.isnan(Linv_ref))
+    lower = torch.ones(m, m, dtype=torch.bool, device=dev).tril()
+    assert torch.isnan(L[1][lower]).all() and (L[1][~lower] == 0).all()
+    assert torch.isnan(Linv[1]).all()
+    Lg, Linvg = ck.chol_inv_cuda(K[[0, 2]], route)
+    assert torch.equal(L[[0, 2]], Lg) and torch.equal(Linv[[0, 2]], Linvg)
+
+
+@pytest.mark.parametrize("route", sorted(ck.CHOL_INV_ROUTES))
+@pytest.mark.parametrize("m", [13, 100, 200])
+def test_chol_inv_never_reads_above_the_diagonal(dev, route, m):
+    K = _spd(dev, 2, m, m + 5)
+    garbage = K + torch.full_like(K, float("nan")).triu(1)
+    L, Linv = ck.chol_inv_cuda(K, route)
+    Lg, Linvg = ck.chol_inv_cuda(garbage, route)
+    torch.cuda.synchronize()
+    assert torch.equal(L, Lg) and torch.equal(Linv, Linvg)
+
+
+def test_chol_inv_max_m(dev):
+    assert ck.max_m("chol_inv") >= 3400
+    with pytest.raises(ValueError):  # above the resident route's limit
+        ck.chol_inv_cuda(torch.eye(241, device=dev), "resident")
+
+
+def _prior_stacks(dev):
+    """The three priors the path factors: the serving chunk's (32, 100, 100)
+    stack (RBF lengthscales 12, 16, 24 and a Gibbs gram per draw on
+    Z = linspace(0, 800, 100), + 1e-4), the DSVI step's (4, 100, 100) at
+    lengthscales 40, and an SVC-style (4, 200, 200) covariance B kron
+    K(x, x) + 0.01 I, one per chain."""
+    g = _gen(dev, 17)
+    Z = torch.linspace(0.0, 800.0, 100, device=dev)
+    eye = torch.eye(100, device=dev)
+    ell = torch.exp(2.5 + 0.3 * torch.randn(8, 100, device=dev, generator=g))
+    stat = torch.stack([kernels.rbf(Z, Z, 1.0, ls) for ls in (12.0, 16.0, 24.0)])
+    serving = torch.cat([stat.expand(8, 3, 100, 100), ck.gibbs_plain(Z, Z, ell, ell)[:, None]], 1)
+    serving = (serving + 1e-4 * eye).reshape(32, 100, 100)
+    ell40 = torch.exp(torch.log(torch.tensor(40.0, device=dev))
+                      + 0.1 * torch.randn(100, device=dev, generator=g))
+    dsvi = torch.stack([kernels.rbf(Z, Z, 1.0, 40.0)] * 3 + [ck.gibbs_plain(Z, Z, ell40, ell40)])
+    dsvi = dsvi + 1e-4 * eye
+    x = torch.sort(torch.rand(100, device=dev, generator=g)).values
+    A = torch.randn(4, 2, 2, device=dev, generator=g)
+    B = A @ A.mT + 0.5 * torch.eye(2, device=dev)
+    svc = torch.stack([torch.kron(B[c], kernels.rbf(x, x, 1.0, 0.3)) for c in range(4)])
+    svc = svc + 0.01 * torch.eye(200, device=dev)
+    return {"serving": serving, "dsvi": dsvi, "svc": svc}
+
+
+@pytest.mark.parametrize("prior", ["serving", "dsvi", "svc"])
+def test_chol_inv_float64_witness_at_the_path_priors(dev, prior):
+    K = _prior_stacks(dev)[prior].contiguous()
+    L, Linv = ck.chol_inv_cuda(K)
+    torch.cuda.synchronize()
+    assert torch.isfinite(L).all() and torch.isfinite(Linv).all()
+    _witnessed_chol_inv(K, L, Linv)
