@@ -11,7 +11,8 @@ at the shapes of the path (the serving forwards; the forward of the
 quadratic form and its two backward kernels against float64 at M = 100
 and 200, the forward also on the path's kind of inputs and timed against
 its einsum at every shape of the training and serving paths; the Gibbs
-gram at every shape of the paths beside the launch floor); serves `predict_Y`,
+and RBF grams at every shape of the paths beside the launch floor, the RBF
+also at 70,001 pairs); serves `predict_Y`,
 `sample_Y` and `sample_FY` at the full ECoG width (D=78 outputs, M=100
 inducing points, B=512 test points) from seeded random parameters, checks
 that every kernel of each path was launched, and holds each call, and the
@@ -33,7 +34,11 @@ five kernels were launched, and times its steps on both routes; runs the
 Cholesky-inverse witness study (`chol_inv_witness`: the ECoG gradient gate
 and the card test's small model at ten draws each, on every kernel, on the
 plain versions, with only chol_inv swapped either way and with each of its
-two outputs alone, and the factor alone against float64 and cuSOLVER).  Then the
+two outputs alone, and the factor alone against float64 and cuSOLVER);
+runs the `dsvi_options` phase (a forced divergence caught by
+`divergence_rollback`, an ECoG epoch with the test RMSE every step and one
+with `chunked_test_trace`, and a checkpoint saved, resumed and, where
+ml_dtypes imports, saved with bf16 moments).  Then the
 fully-Bayesian path: holds the RBF, Cholesky, Kronecker-matvec and
 Cholesky-inverse kernels against float64 runs of their plain versions at
 the path's shapes (the Cholesky-inverse at M = 200 and 1024, NaN on a
@@ -47,7 +52,7 @@ crossover table);
 runs `scripts/run_mcmc_sim.py`'s default study through the port
 (sim_mnts M=2, N=100; empirical init; the whitened SVC density, dim 401;
 NUTS, 4 chains, max depth 8, diagonal mass; its 400 warmup and 400 samples
-cut to 100 and 100 to fit the time limit, and the chains started at the MAP
+cut to 100 and 60 to fit the time limit, and the chains started at the MAP
 that `run_map` finds from the empirical init, see FB_WARMUP), holds
 the log-posterior and its gradient at the empirical init and at that start
 against float64, checks the
@@ -68,8 +73,11 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import ExitStack, contextmanager
 from pathlib import Path
@@ -92,9 +100,12 @@ TRAIN_KERNELS = ("gibbs", "chol_inv", "quadform_diag", "quadform_diag_dw", "quad
 # there one chain of four stayed in a region of lower density through 100
 # and through 150 warmup transitions (R-hat max 2.35 and 2.49), where the
 # JAX package's own run of the same study cut to 100 + 100 converged on
-# the CPU (R-hat max 1.011); `svc_init_study.py` counts such chains.
+# the CPU (R-hat max 1.011); `svc_init_study.py` counts such chains.  The
+# samples are cut to 60: a pass's host time varies up to ~1.8x between
+# machines (6.5 to 11.5 ms), and at 100 + 100 the slowest took 641 s of
+# the script's 831, past half its time limit.
 FB_N, FB_CHAINS, FB_DEPTH = 100, 4, 8
-FB_WARMUP, FB_SAMPLES = 100, 100
+FB_WARMUP, FB_SAMPLES = 100, 60
 FB_FULL = (400, 400)
 MAP_LR, MAP_STEPS = 0.2, 2000
 FB_HYPERS = dict(mu_tilde_l=-3.0, alpha_tilde_l=3.0, beta_tilde_l=0.4, mu_L=0.0, alpha_L=5.0,
@@ -457,6 +468,65 @@ def gibbs_shapes(ck, gen, dev):
     errs.append(witnessed("gibbs (far entries)", ck.gibbs_cuda(x1, x2, l1, l2, 1.0),
                           ck.gibbs_plain(x1, x2, l1, l2, 1.0), ck.gibbs_plain(*f64, 1.0), 1e-6,
                           f"({S},{n},{m})"))
+    return max(errs), rows
+
+
+# The RBF gram's shapes (S, N, M) on the paths, with the span of their
+# inputs and their (scale^2, lengthscale) pairs: predict_y_mean's cross and
+# inducing grams at ECoG width (six a call, one pair each; the test trace
+# of training runs them every epoch or step), the SVC whitening grams at
+# N = 100 and the SNMGP ones at N = 1024 (logdensities._prior_chols)
+RBF_PATH_SHAPES = ((1, 512, 100), (1, 100, 100), (2, 100, 100), (2, 1024, 1024))
+RBF_PATH_INPUTS = {(1, 512, 100): (800.0, None), (1, 100, 100): (800.0, None),
+                   (2, 100, 100): (1.0, ((9.0, 0.4), (25.0, 1.0))),
+                   (2, 1024, 1024): (1.0, ((9.0, 0.4), (1.0, 0.4)))}
+
+
+def rbf_shapes(ck, gen, dev):
+    """The RBF kernel at every shape of RBF_PATH_SHAPES: rtol 1e-5 against
+    the plain version (and the share of entries equal to it bit for bit),
+    within 3x the plain f32 error of float64 + 1e-6 of max, then timed
+    beside the launch floor; and once at 70,001 pairs (above a grid
+    dimension's 65,535) with M % 4 != 0.  Returns (max |kernel - plain|,
+    the timing rows)."""
+    floor = device_ms(lambda: torch.cuda._sleep(8), inner=10)
+    errs, rows = [], []
+    for S, n, m in RBF_PATH_SHAPES:
+        span, pairs = RBF_PATH_INPUTS[(S, n, m)]
+        x1 = span * torch.rand(n, device=dev, generator=gen)
+        x2 = torch.linspace(0.0, span, m, device=dev) if n != m else x1
+        if pairs is None:  # exp of the 0-d log parameters, as predict_y_mean has them
+            s2, ls = torch.tensor(1.0, device=dev), torch.tensor(40.0, device=dev)
+        else:
+            s2, ls = (torch.tensor(v, device=dev) for v in zip(*pairs))
+        K, K_ref = ck.rbf_cuda(x1, x2, s2, ls), ck.rbf_plain(x1, x2, s2, ls)
+        torch.cuda.synchronize()
+        errs.append(float((K - K_ref).abs().max()))
+        same = float((K == K_ref).double().mean())
+        check(float(((K - K_ref).abs() - 1e-5 * K_ref.abs() - 1e-30).max()) <= 0.0
+              and bool(torch.isfinite(K).all()),
+              f"rbf ({S},{n},{m}): max|K-plain| {errs[-1]:.3e}, rtol 1e-5; {same:.1%} of the "
+              f"entries equal to the plain version's")
+        witnessed("rbf", K, K_ref, ck.rbf_plain(x1.double(), x2.double(), s2.double(), ls.double()),
+                  1e-6, f"({S},{n},{m})")
+        el = S * n * m
+        row = timing_entry(f"rbf ({S},{n},{m})", lambda: ck.rbf_cuda(x1, x2, s2, ls),
+                           lambda: ck.rbf_plain(x1, x2, s2, ls), None,
+                           bound_ms(4 * (n + m + 2 * S + el), 5 * el), inner=10)
+        row.update(floor_ms=floor, equal_to_plain=same)
+        rows.append(row)
+        print(f"  rbf ({S},{n},{m}): {row['ms'] - floor:.5f} ms above the launch floor", flush=True)
+        del K, K_ref
+    S, n, m = 70_001, 3, 5
+    x1, x2 = torch.rand(n, device=dev, generator=gen), torch.rand(m, device=dev, generator=gen)
+    s2 = torch.rand(S, device=dev, generator=gen) + 0.5
+    ls = torch.rand(S, device=dev, generator=gen) + 0.1
+    K, K_ref = ck.rbf_cuda(x1, x2, s2, ls), ck.rbf_plain(x1, x2, s2, ls)
+    torch.cuda.synchronize()
+    errs.append(float((K - K_ref).abs().max()))
+    check(float(((K - K_ref).abs() - 1e-5 * K_ref.abs() - 1e-30).max()) <= 0.0,
+          f"rbf ({S},{n},{m}), more pairs than a grid dimension holds: max|K-plain| "
+          f"{errs[-1]:.3e}, rtol 1e-5")
     return max(errs), rows
 
 
@@ -892,6 +962,107 @@ def ecog_m200(ck, td, tc, dev, smi):
     print(f"train ECoG M=200: kernels {k[0]:.2f} / {k[1]:.2f} steps/s, plain versions "
           f"{pl[0]:.2f} / {pl[1]:.2f} steps/s ({smi})")
     return launched
+
+def dsvi_options(ck, td, sim, dev, smi, ckpt, optimizers):
+    """The options of `inference()` beyond plain training, on the card.
+    (a) A forced divergence (tests/test_dsvi_e2e.py:388-430): M = 8, B =
+    64, lr 30 on sim_illustration_low_freq(seed=22) with
+    `divergence_rollback` takes a rollback and keeps only finite losses; at
+    lr 0.01 the guarded and unguarded losses agree.  (b) ECoG width, one
+    epoch with the test RMSE every step on 512 held-out points and one
+    with `chunked_test_trace`: the same final RMSE.  (c) The checkpoint at
+    ECoG width: one epoch saved, one resumed (its first loss below 0.7x the
+    fresh first loss, the JAX test's criterion), and where ml_dtypes
+    imports a bf16-moment save, under 0.75x the float32 file, whose
+    moments come back within 2^-8.  Returns the launches of the runs."""
+    launched = {k: 0 for k in ck.KERNELS}
+
+    def run(*args, **kw):
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        res = td.inference(*args, show_ELBO=False, device=dev, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ck.LAUNCHES)
+        for k in ck.KERNELS:
+            launched[k] += counts[k]
+        return res, wall, counts
+
+    # (a) the forced divergence
+    X, Y, _, _ = sim.sim_illustration_low_freq(seed=22)
+    z = np.linspace(0, 1, 8)
+    bad, wall, counts = run(X, Y, z, 64, 2, itnum=8, lr=30.0, divergence_rollback=True,
+                            max_rollbacks=4)
+    losses = np.asarray(bad.loss_list)
+    check(bad.rollbacks >= 1 and losses.size == 8 * 4 and bool(np.all(np.isfinite(losses))),
+          f"dsvi_options (a) lr 30, divergence_rollback: {bad.rollbacks} rollback(s), "
+          f"{losses.size} kept losses, all finite ({wall:.2f} s, {smi}; launches {counts})")
+    ok_g = run(X, Y, z, 64, 2, itnum=6, lr=0.01, divergence_rollback=True)[0]
+    ok_u = run(X, Y, z, 64, 2, itnum=6, lr=0.01)[0]
+    rel = float(np.max(np.abs(np.asarray(ok_g.loss_list) - ok_u.loss_list) / np.abs(ok_u.loss_list)))
+    check(ok_g.rollbacks == 0 and rel <= 1e-5,
+          f"dsvi_options (a) lr 0.01: guarded and unguarded losses agree to {rel:.2e} (rtol 1e-5), "
+          f"{ok_g.rollbacks} rollbacks")
+
+    # (b) the test trace at ECoG width
+    X_list, Y_list = ecog_lists()
+    Xt = ecog_request(5)
+    Yt = [np.sin(t / 40.0) for t in Xt]
+    Z = np.linspace(0.0, 800.0, M_ECOG)
+    ecog = dict(batch_size=B_ECOG, dim_outputs=D_ECOG, lr=0.005, itnum=1, seed=0)
+    final = {}
+    for mode, extra in (("per step", {}), ("chunked", {"chunked_test_trace": True})):
+        res, wall, counts = run(X_list, Y_list, Z, X_test_list=Xt, Y_test_list=Yt, **ecog, **extra)
+        steps = len(res.loss_list)
+        final[mode] = res.rmse_test_list[-1]
+        check(counts["rbf"] > 0 and all(counts[k] > 0 for k in TRAIN_KERNELS)
+              and bool(np.all(np.isfinite(res.rmse_test_list))),
+              f"dsvi_options (b) ECoG epoch, test RMSE {mode}: {steps / wall:.2f} steps/s "
+              f"({steps} steps, {wall:.2f} s with set-up), {len(res.rmse_test_list)} RMSEs, "
+              f"{len(res.rmse_trace)} trace entries, final RMSE {final[mode]:.6f}, rbf launches "
+              f"{counts['rbf']}; launches {counts} ({smi})")
+    rel = abs(final["chunked"] - final["per step"]) / abs(final["per step"])
+    check(rel <= 1e-5, f"dsvi_options (b) final RMSE, chunked and per step: {rel:.2e} apart (rtol 1e-5)")
+
+    # (c) the checkpoint round trip at ECoG width
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="ckpt-", dir=build))
+    try:
+        path = str(work / "ecog.pkl")
+        fresh, _, _ = run(X_list, Y_list, Z, PATH=path, save_model=True, **ecog)
+        save_s, size = ckpt.LAST_IO_SECONDS["save"], os.path.getsize(path)
+        resumed, _, _ = run(X_list, Y_list, Z, PATH=path, continuous_training=True, **ecog)
+        check(resumed.loss_list[0] < 0.7 * fresh.loss_list[0],
+              f"dsvi_options (c) ECoG checkpoint: {size} bytes, save {save_s:.3f} s, load "
+              f"{ckpt.LAST_IO_SECONDS['load']:.3f} s; resumed first loss "
+              f"{resumed.loss_list[0]:.4e} < 0.7x the fresh first {fresh.loss_list[0]:.4e} ({smi})")
+        try:
+            import ml_dtypes  # noqa: F401
+        except ImportError:
+            print("dsvi_options (c): ml_dtypes does not import here: the bf16-moment save is "
+                  "not run (it needs ml_dtypes)")
+        else:
+            like_p = resumed.params
+            like_o = optimizers.optax_state(td.make_optimizer(list(like_p), "adam", 0.005), like_p)
+            p32, o32 = ckpt.load_train_state(path, like_p, like_o)
+            half = str(work / "ecog_bf16.pkl")
+            ckpt.save_train_state(half, p32, o32, moments_dtype=torch.bfloat16)
+            half_size, half_s = os.path.getsize(half), ckpt.LAST_IO_SECONDS["save"]
+            p16, o16 = ckpt.load_train_state(half, like_p, o32)
+            same_p = all(torch.equal(a, b) for a, b in zip(p32, p16))
+            worst = max(float(((b.double() - a.double()).abs() - 2**-8 * a.double().abs()).max())
+                        for a, b in zip(o32, o16) if a.is_floating_point())
+            check(half_size < 0.75 * size and same_p and worst <= 1e-12
+                  and all(a.dtype == b.dtype for a, b in zip(o32, o16)),
+                  f"dsvi_options (c) bf16 moments (ml_dtypes imports): {half_size} bytes, "
+                  f"{half_size / size:.3f}x the float32 file, save {half_s:.3f} s, load "
+                  f"{ckpt.LAST_IO_SECONDS['load']:.3f} s ({smi}); parameters bit for bit, moments "
+                  f"within 2^-8 back in float32")
+    finally:
+        shutil.rmtree(work)
+    return launched
+
 
 # ---------------------------------------------------------------------------
 # The fully-Bayesian path
@@ -1471,7 +1642,10 @@ def main() -> int:
     if not (Path(__file__).resolve().parent / PORT).is_dir():
         print(f"chip_smoke: the package {PORT} is not beside this script", file=sys.stderr)
         return 2
-    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer import dsvi
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer import (
+        dsvi,
+        optimizers,
+    )
     from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import (
         cnmgp,
         predict,
@@ -1483,7 +1657,10 @@ def main() -> int:
     from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops.kernels import (
         rbf,
     )
-    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils import sim
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils import (
+        checkpoint,
+        sim,
+    )
     from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils.metrics import (
         predictive_summary,
     )
@@ -1588,6 +1765,7 @@ def main() -> int:
     for name in ("quadform_diag", "quadform_diag_dw", "quadform_diag_da"):
         check(ck.max_m(name) >= 512, f"max_m({name!r}) = {ck.max_m(name)} >= 512")
     gibbs_err, gibbs_rows = gibbs_shapes(ck, torch.Generator(device=dev).manual_seed(8), dev)
+    rbf_err, rbf_rows = rbf_shapes(ck, torch.Generator(device=dev).manual_seed(10), dev)
     backward200 = backward_kernels(ck, gen, dev, M_ECOG200)
 
     # ----------------------------------------- serving at full ECoG width
@@ -1730,8 +1908,11 @@ def main() -> int:
     trained200 = ecog_m200(ck, dsvi, cnmgp, dev, smi)
     witness = chol_inv_witness(ck, cnmgp, dev, smi)
     print(f"launches in one ECoG M=200 training epoch: {trained200}")
+    t0 = time.perf_counter()
+    options = dsvi_options(ck, dsvi, sim, dev, smi, checkpoint, optimizers)
+    print(f"dsvi_options phase {time.perf_counter() - t0:.1f} s; launches {options}")
     for k in ck.KERNELS:
-        launches[k] += trained[k] + trained200[k]
+        launches[k] += trained[k] + trained200[k] + options[k]
 
     # ------------------------------------------------------ fully Bayesian
     t0 = time.perf_counter()
@@ -1739,7 +1920,7 @@ def main() -> int:
     print(f"SVC NUTS phase {time.perf_counter() - t0:.1f} s; launches {fb_launched}")
     fb = fb_kernel_checks(ck, gen, dev, svc_K)
     more = {"cholesky": cholesky_routes(ck, gen, dev, smi), "kron_mv": kron_layouts(ck, gen, dev, smi),
-            "quadform_diag": qf_rows, "gibbs": gibbs_rows,
+            "quadform_diag": qf_rows, "gibbs": gibbs_rows, "rbf": rbf_rows,
             "chol_inv": chol_inv_shapes(ck, torch.Generator(device=dev).manual_seed(9), dev, smi)}
     t0 = time.perf_counter()
     sn_launched = fb_snmgp(ck, dev, smi)
@@ -1759,12 +1940,12 @@ def main() -> int:
     tpu = "collaborative_nonstationary_multivariate_gaussian_process_tpu/ops/pallas_kernels.py"
     tc_bounds = {}
     rows = [
-        ("gibbs", f"{tpu}:93", max(gibbs_errs + [gibbs_err])),
-        ("rbf", f"{tpu}:143", fb["rbf"][1]),
+        ("gibbs", f"{tpu}:94", max(gibbs_errs + [gibbs_err])),
+        ("rbf", f"{tpu}:144", max(fb["rbf"][1], rbf_err)),
         ("kron_mv", f"{tpu}:189", fb["kron_mv"][1]),
         ("cholesky", f"{tpu}:273", fb["cholesky"][1]),
         ("chol_inv", f"{tpu}:357", max(chol_err, fb["chol_inv (4,200,200)"][1])),
-        ("quadform_diag", f"{tpu}:577", max(qf_err, qf64_err)),
+        ("quadform_diag", f"{tpu}:578", max(qf_err, qf64_err)),
     ]
     for n, line in (("quadform_diag_dw", 648), ("quadform_diag_da", 667)):
         rows.append((n, f"{tpu}:{line}", max(backward[n][1], backward200[n][1])))
@@ -1812,6 +1993,58 @@ def witness_main() -> int:
     ).stdout.strip().splitlines()[0]
     ck.build(TRAIN_KERNELS)
     chol_inv_witness(ck, cnmgp, torch.device("cuda"), smi)
+    return 1 if FAILURES else 0
+
+
+def rbf_compare_main(parent: str = "build/parent_rbf.cu") -> int:
+    """The RBF kernel of this tree against another build of it (`parent`, a
+    `rbf.cu` with the same C entry, e.g. the parent commit's, unpacked into
+    a directory that .gitignore lists), in turns parent, this, this, parent
+    at every shape of RBF_PATH_SHAPES, and the share of equal entries:
+    python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.rbf_compare_main())'"""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    import ctypes
+
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    ck.build(("rbf",))
+    lib = Path(parent).with_suffix(".so")
+    subprocess.run([ck._nvcc(), *ck._NVCC_FLAGS, "-o", str(lib), parent], check=True,
+                   capture_output=True)
+    launch = ctypes.CDLL(str(lib.resolve())).rbf_launch
+    launch.argtypes, launch.restype = ck._ARGTYPES["rbf"], ctypes.c_int
+
+    def other(x1, x2, s2, ls):
+        out = torch.empty((s2.shape[0], x1.shape[0], x2.shape[0]), device=x1.device)
+        err = launch(x1.data_ptr(), x2.data_ptr(), s2.data_ptr(), ls.data_ptr(), out.data_ptr(),
+                     s2.shape[0], x1.shape[0], x2.shape[0], torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{parent}: the launch returned CUDA error {err}")
+        return out
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    print(f"launch floor {device_ms(lambda: torch.cuda._sleep(8), inner=10):.5f} ms ({smi})")
+    for S, n, m in RBF_PATH_SHAPES:
+        span, pairs = RBF_PATH_INPUTS[(S, n, m)]
+        x1 = span * torch.rand(n, device=dev, generator=gen)
+        x2 = torch.linspace(0.0, span, m, device=dev) if n != m else x1
+        pairs = pairs or ((1.0, 40.0),)
+        s2, ls = (torch.tensor(v, device=dev) for v in zip(*pairs))
+        this = lambda: ck.rbf_cuda(x1, x2, s2, ls)  # noqa: E731
+        theirs = lambda: other(x1, x2, s2, ls)  # noqa: E731
+        same = float((this() == theirs()).double().mean())
+        t = [device_ms(f, inner=10) for f in (theirs, this, this, theirs)]
+        print(f"time rbf ({S},{n},{m}): parent {t[0]:.5f} / {t[3]:.5f} ms, this tree {t[1]:.5f} / "
+              f"{t[2]:.5f} ms; {same:.1%} of the entries equal ({smi})")
     return 1 if FAILURES else 0
 
 

@@ -11,12 +11,18 @@ nmgp_dsvi.py:758-909):
     nmgp_dsvi.py:784-785);
   - minibatch epochs shuffled on the device, the last batch padded with rows
     of weight 0;
-  - the epoch-window stop criterion and the periodic ELBO probe.
+  - the epoch-window stop criterion and the periodic ELBO probe;
+  - checkpoint save/resume (nmgp_dsvi.py:789-792, 893-899) through
+    `utils.checkpoint`, in the JAX package's file format;
+  - the divergence rollback and the chunked test trace of the JAX fast path.
 
 The JAX package runs epochs inside one `lax.scan` per dispatch window; that
 was a workaround for a limit of its TPU worker.  Here a step is a plain
 Python loop over batches, and losses stay on the device until an epoch ends
 (or a probe needs them): the host does not wait for the card on every step.
+The epoch is therefore the port's chunk, where the JAX package's is as many
+epochs as fit its dispatch budget: the rollback guard checks each epoch and
+the chunked test trace has one entry per epoch.
 """
 
 from __future__ import annotations
@@ -31,7 +37,9 @@ import torch
 from ..config import DEFAULT_DTYPE, DSVI_JITTER, resolve_device
 from ..models import cnmgp
 from ..models.cnmgp import CNMGPParams
+from ..utils import checkpoint as ckpt
 from ..utils.data import flatten_output_lists
+from . import optimizers
 from .optimizers import AdamBf16Moments
 
 __all__ = [
@@ -69,9 +77,8 @@ class DSVIResult:
     time_list: List[float]
     elbo_trace: List[float] = field(default_factory=list)
     rmse_test_list: List[float] = field(default_factory=list)
-    # (wall seconds, epochs done, rmse) at each checkpoint of
-    # `chunked_test_trace`, and the rollbacks `divergence_rollback` took:
-    # the JAX result's fields; empty and 0 until those options are ported
+    # (wall seconds, epochs done, rmse) after each epoch of
+    # `chunked_test_trace`, and the rollbacks `divergence_rollback` took
     rmse_trace: List[tuple] = field(default_factory=list)
     rollbacks: int = 0
 
@@ -122,6 +129,7 @@ def make_train_step(
     kl_mode: str = "true",
     grad_clip_norm: Optional[float] = None,
     lr: Optional[Callable[[int], float]] = None,
+    start: int = 0,
 ):
     """One DSVI step, (params, grad_mask, Z, bx, by, bidx, bw, noise) ->
     loss, a 0-d tensor left on the device.  `params` are the tensors
@@ -129,8 +137,9 @@ def make_train_step(
     gradients of the negative SELBO, non-finite entries -> 0, the freeze
     mask, then, when `grad_clip_norm` is given, optax's global-norm clip,
     then the Adam update.  `lr`, when given, is the rate of each step from
-    the step count (0 for the first step), as an optax schedule is read."""
-    count = 0
+    the step count (`start` for the first step: 0, or the count of a
+    resumed checkpoint), as an optax schedule is read."""
+    count = start
 
     def step(params: CNMGPParams, grad_mask: CNMGPParams, Z, bx, by, bidx, bw, noise):
         nonlocal count
@@ -157,10 +166,52 @@ def make_train_step(
     return step
 
 
-def _deferred(name: str, item: str):
-    raise NotImplementedError(
-        f"inference({name}=...) is not ported yet: ROADMAP.md, Queue 1 item {item}"
-    )
+
+
+def _diverged(losses: List[float], n_before: int) -> bool:
+    """The JAX guard's test of a chunk (dsvi.py:511-517): a non-finite loss,
+    or, once a finite loss exists before it, a loss above 10x |the least
+    of them| (an escape from the loss basin)."""
+    new = np.asarray(losses[n_before:], dtype=np.float64)
+    if not np.all(np.isfinite(new)):
+        return True
+    prev = np.asarray(losses[:n_before], dtype=np.float64)
+    prev = prev[np.isfinite(prev)]
+    return bool(prev.size) and float(np.max(new)) > 10.0 * abs(float(np.min(prev)))
+
+
+def _snapshot(params, opt: torch.optim.Optimizer, gen: torch.Generator):
+    """Copies, on the device, of the parameters and the optimizer's state,
+    and the generator's state."""
+    state = {p: {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in st.items()}
+             for p, st in opt.state.items()}
+    return [p.detach().clone() for p in params], state, gen.get_state()
+
+
+def _roll_back(snap, params, opt: torch.optim.Optimizer, gen: torch.Generator, factor: float):
+    """Restore a `_snapshot` (the parameters in place: the optimizer holds
+    them) and scale every param group's rate by `factor`."""
+    values, state, rng = snap
+    with torch.no_grad():
+        for p, v in zip(params, values):
+            p.copy_(v)
+    opt.state.clear()
+    opt.state.update(state)
+    gen.set_state(rng)
+    for group in opt.param_groups:
+        group["lr"] *= factor
+
+
+def _resume(path: str, params, opt, inject: bool, schedule: bool, hyperpars) -> int:
+    """Load a checkpoint into `params` (in place) and `opt`, then re-apply
+    `hyperpars` (the JAX order, dsvi.py:426-433).  Returns the step count."""
+    loaded, leaves = ckpt.load_train_state(
+        path, params, optimizers.optax_state(opt, params, inject, schedule))
+    loaded = apply_hyperpars(loaded, hyperpars)
+    with torch.no_grad():
+        for p, v in zip(params, loaded):
+            p.copy_(v)
+    return optimizers.load_optax_state(opt, params, leaves, inject, schedule)
 
 
 def inference(
@@ -218,24 +269,41 @@ def inference(
     the seconds since the start at the end of its epoch, when its loss was
     read.  On a CUDA card a float32 run goes through the kernels and a
     float64 one (`dtype=torch.float64`) through their plain versions, as
-    the JAX package takes Pallas only for float32.  Not ported yet, each
-    raising NotImplementedError that names its ROADMAP.md item: the
-    checkpoint (`PATH`, `save_model`, `continuous_training`,
-    `ckpt_moments_dtype`; Queue 1 item 3), `mesh` (item 10), and
-    `divergence_rollback` and `chunked_test_trace` (item 2;
-    `rollback_lr_factor` and `max_rollbacks` are taken and serve only
-    `divergence_rollback`).
+    the JAX package takes Pallas only for float32.
+
+    Checkpoints (`utils.checkpoint`, the JAX package's file, so either
+    package resumes the other's): with `PATH` and `continuous_training`
+    the run starts from the parameters and optimizer state saved there
+    (the length-scale hyperparameters of `hyperpars` re-applied when
+    `fix_hyperpars`; under `divergence_rollback` the saved rate); with
+    `PATH` and `save_model` it saves them at the end, the optimizer state's
+    floats cast to `ckpt_moments_dtype` when given.  Without `PATH` these
+    options do nothing, as in the JAX package.
+
+    `divergence_rollback` (a constant float `lr` only) checks each epoch:
+    one with a non-finite loss, or with a loss above 10x |the least
+    earlier loss|, is undone (parameters, optimizer state and generator,
+    so the retry sees the same shuffle and noise) and retried with every
+    rate scaled by `rollback_lr_factor`, at most `max_rollbacks` times in
+    a run.  `chunked_test_trace` with `X_test_list` computes the test RMSE
+    once an epoch into `rmse_test_list` and `rmse_trace` ((wall seconds,
+    epochs done, rmse)) instead of every step.  The JAX package applies
+    both only on its fast path, so here too they do nothing with `verbose`,
+    `do_stop_criterion`, or a test set without `chunked_test_trace`
+    (`rollbacks` 0, `rmse_trace` empty).  The JAX chunk is as many epochs
+    as fit its dispatch budget, the port's one epoch: its `rmse_trace` has
+    an entry per epoch, the JAX one fewer.  `mesh` (multi-device) is not
+    ported: it raises NotImplementedError naming ROADMAP.md, Queue 1 item
+    10.
     """
-    deferred = {
-        "PATH": (PATH is not None, "3"), "save_model": (save_model, "3"),
-        "continuous_training": (continuous_training, "3"),
-        "ckpt_moments_dtype": (ckpt_moments_dtype is not None, "3"),
-        "mesh": (mesh is not None, "10"), "divergence_rollback": (divergence_rollback, "2"),
-        "chunked_test_trace": (chunked_test_trace, "2"),
-    }
-    for name, (given, item) in deferred.items():
-        if given:
-            _deferred(name, item)
+    if mesh is not None:
+        raise NotImplementedError("inference(mesh=...) is not ported yet: ROADMAP.md, Queue 1 item 10")
+    if divergence_rollback and (lr_decay is not None or callable(lr)):
+        raise ValueError(
+            "divergence_rollback scales a constant injected learning rate; "
+            "it cannot be combined with lr_decay or a schedule (a schedule "
+            "recomputes the rate from the step count every update)"
+        )
     if lr_decay is not None and callable(lr):
         raise ValueError("lr_decay decays a constant lr; pass one or the other")
 
@@ -263,8 +331,16 @@ def inference(
     else:
         schedule = lr if callable(lr) else None
     opt = make_optimizer(params, optimizer, float(lr) if schedule is None else 0.0)
+    # the optax state of the same options: inject_hyperparams under the
+    # rollback, a schedule's count with a schedule
+    layout = dict(inject=divergence_rollback, schedule=schedule is not None)
+    start = 0
+    if continuous_training and PATH is not None:
+        lengthscales = {k: v for k, v in (hyperpars or {}).items() if k.startswith("length_scales")}
+        start = _resume(PATH, params, opt, **layout,
+                        hyperpars=lengthscales if fix_hyperpars else None)
     grad_mask = freeze_mask(params, fix_hyperpars)
-    step = make_train_step(opt, float(n_total), jitter, kl_mode, grad_clip_norm, schedule)
+    step = make_train_step(opt, float(n_total), jitter, kl_mode, grad_clip_norm, schedule, start)
 
     if X_test_list is not None:
         test = flatten_output_lists(X_test_list, Y_test_list)
@@ -272,12 +348,24 @@ def inference(
         it = torch.as_tensor(test.idx, dtype=torch.int64, device=device)
         yt = torch.as_tensor(test.y, dtype=dtype, device=device)
 
+    def test_rmse():
+        with torch.no_grad():
+            est = cnmgp.predict_y_mean(params, Z, xt, it, jitter)
+            return torch.sqrt(torch.mean((est - yt) ** 2))
+
+    # the JAX fast path (dsvi.py:456-460), the only one with the guard and
+    # the chunked trace
+    fast = (X_test_list is None or chunked_test_trace) and not do_stop_criterion and not verbose
+    guard = divergence_rollback and fast
     loss_list: List[float] = []
     time_list: List[float] = []
     elbo_trace: List[float] = []
     rmse_test_list: List[float] = []
+    rmse_trace: List[tuple] = []
+    rollbacks = 0
     ts = time.time()
-    for epoch in range(itnum):
+
+    def train_epoch(epoch: int) -> List[float]:
         if num_batches == 1:
             batch_idx = torch.arange(n_total, device=device)[None]
             batch_w = torch.ones((1, n_total), dtype=dtype, device=device)
@@ -293,15 +381,34 @@ def inference(
             sel = batch_idx[b]
             noise = cnmgp.draw_train_noise(gen, 1, M, batch_size, D, dtype=dtype)
             losses.append(step(params, grad_mask, Z, x[sel], y[sel], idx[sel], batch_w[b], noise))
-            if X_test_list is not None:
-                with torch.no_grad():
-                    est = cnmgp.predict_y_mean(params, Z, xt, it, jitter)
-                    rmses.append(torch.sqrt(torch.mean((est - yt) ** 2)))
+            if X_test_list is not None and not fast:
+                rmses.append(test_rmse())
         epoch_losses = torch.stack(losses).tolist()  # the host waits here, once an epoch
         loss_list.extend(epoch_losses)
         time_list.extend([time.time() - ts] * num_batches)
         if rmses:
             rmse_test_list.extend(torch.stack(rmses).tolist())
+        if X_test_list is not None and fast:
+            rmse = float(test_rmse())
+            rmse_trace.append((time.time() - ts, epoch + 1, rmse))
+            rmse_test_list.append(rmse)
+        return epoch_losses
+
+    epoch = itnum - 1
+    for epoch in range(itnum):
+        while True:
+            if guard:
+                snap = _snapshot(params, opt, gen)
+                marks = [len(a) for a in (loss_list, time_list, rmse_trace, rmse_test_list)]
+            epoch_losses = train_epoch(epoch)
+            if not guard or rollbacks >= max_rollbacks or not _diverged(loss_list, marks[0]):
+                break
+            _roll_back(snap, params, opt, gen, rollback_lr_factor)
+            for a, n in zip((loss_list, time_list, rmse_trace, rmse_test_list), marks):
+                del a[n:]
+            rollbacks += 1
+            print(f"divergence rollback #{rollbacks}: retrying 1 epoch(s) from epoch {epoch} at "
+                  f"lr={opt.param_groups[0]['lr']:.3g}")
         if verbose:
             for b, loss in enumerate(epoch_losses):
                 print(f"epoch: {epoch}/{itnum}, batch: {b + 1}/{num_batches}, loss: {loss:.4f}")
@@ -321,6 +428,9 @@ def inference(
 
     if verbose or show_ELBO:
         print(f"training takes {time.time() - ts:.2f}s")
+    if save_model and PATH is not None:
+        ckpt.save_train_state(PATH, params, optimizers.optax_state(opt, params, **layout),
+                              epoch=epoch, loss=loss_list[-1], moments_dtype=ckpt_moments_dtype)
     return DSVIResult(
         params=CNMGPParams(*(t.detach() for t in params)),
         Z=Z,
@@ -328,4 +438,6 @@ def inference(
         time_list=time_list,
         elbo_trace=elbo_trace,
         rmse_test_list=rmse_test_list,
+        rmse_trace=rmse_trace,
+        rollbacks=rollbacks,
     )

@@ -12,9 +12,16 @@ the storage dtype changes.  The plain "adam" of `inference()` is
 
 from __future__ import annotations
 
+from typing import List, Sequence
+
 import torch
 
-__all__ = ["AdamBf16Moments"]
+__all__ = ["AdamBf16Moments", "optax_state", "load_optax_state"]
+
+# The hyperparameters `optax.inject_hyperparams` keeps in the state of
+# `optax.adam` and of the JAX `adam_bf16_moments`, in its (sorted) order.
+_INJECTED = {"adam": ("b1", "b2", "eps", "eps_root", "learning_rate"),
+             "adam_bf16": ("b1", "b2", "eps", "learning_rate")}
 
 
 class AdamBf16Moments(torch.optim.Optimizer):
@@ -58,3 +65,74 @@ class AdamBf16Moments(torch.optim.Optimizer):
                 state["mu"] = mu.to(torch.bfloat16)
                 state["nu"] = nu.to(torch.bfloat16)
         return loss
+
+
+def _moments(opt: torch.optim.Optimizer, p: torch.Tensor):
+    """(count, mu, nu) of parameter p: optax's names for `torch.optim.Adam`'s
+    (step, exp_avg, exp_avg_sq) and `AdamBf16Moments`' own; zeros before
+    the first step, as optax's init has them."""
+    st = opt.state.get(p) or {}
+    if isinstance(opt, AdamBf16Moments):
+        zero = torch.zeros_like(p, dtype=torch.bfloat16)
+        return st.get("count", 0), st.get("mu", zero), st.get("nu", zero)
+    if not st:
+        return 0, torch.zeros_like(p), torch.zeros_like(p)
+    return int(st["step"]), st["exp_avg"], st["exp_avg_sq"]
+
+
+def _kind(opt) -> str:
+    return "adam_bf16" if isinstance(opt, AdamBf16Moments) else "adam"
+
+
+def optax_state(opt: torch.optim.Optimizer, params: Sequence[torch.Tensor], inject: bool = False,
+                schedule: bool = False) -> List[torch.Tensor]:
+    """The state of `opt` over `params` (one param group, in `CNMGPParams`
+    order) as the leaves, in optax's order, of the state that the JAX
+    `inference()` builds for the same options:
+
+      [inject count, injected hyperparameters (sorted)]   divergence_rollback
+      count, mu (one per parameter), nu (one per parameter)
+      [schedule count]                                     lr_decay or a callable lr
+
+    count is int32, the hyperparameters in the parameters' float dtype, mu
+    and nu in the optimizer's storage dtype.  A global-norm clip adds no
+    leaf (its optax state is empty)."""
+    params = list(params)
+    moments = [_moments(opt, p) for p in params]
+    count = torch.tensor(moments[0][0] if moments else 0, dtype=torch.int32)
+    leaves = []
+    if inject:
+        group = opt.param_groups[0]
+        values = dict(b1=group["betas"][0], b2=group["betas"][1], eps=group["eps"], eps_root=0.0,
+                      learning_rate=group["lr"])
+        leaves += [count] + [torch.tensor(values[k], dtype=params[0].dtype)
+                             for k in _INJECTED[_kind(opt)]]
+    leaves += [count] + [m[1] for m in moments] + [m[2] for m in moments]
+    return leaves + [count] if schedule else leaves
+
+
+def load_optax_state(opt: torch.optim.Optimizer, params: Sequence[torch.Tensor],
+                     leaves: Sequence[torch.Tensor], inject: bool = False,
+                     schedule: bool = False) -> int:
+    """Set the state of `opt` from optax leaves laid out as `optax_state`
+    lays them (a checkpoint of either package, restored to this state's
+    dtypes); an injected learning rate becomes the rate of every param
+    group.  Returns the step count (the count of a schedule, where there
+    is one)."""
+    params, leaves = list(params), list(leaves)
+    if inject:
+        names = _INJECTED[_kind(opt)]
+        hyper = dict(zip(names, leaves[1:1 + len(names)]))
+        for group in opt.param_groups:
+            group["lr"] = float(hyper["learning_rate"])
+        leaves = leaves[1 + len(names):]
+    n = len(params)
+    count = int(leaves[0])
+    mu, nu = leaves[1:1 + n], leaves[1 + n:1 + 2 * n]
+    for p, m, v in zip(params, mu, nu):
+        if isinstance(opt, AdamBf16Moments):
+            opt.state[p] = {"count": count, "mu": m.to(torch.bfloat16), "nu": v.to(torch.bfloat16)}
+        else:
+            opt.state[p] = {"step": torch.tensor(float(count)), "exp_avg": m.to(p.dtype),
+                            "exp_avg_sq": v.to(p.dtype)}
+    return int(leaves[-1]) if schedule else count

@@ -434,6 +434,96 @@ def test_rbf_kernel_matches_plain(dev, S, n, m):
     assert K.shape == K_ref.shape and torch.allclose(K, K_ref, rtol=1e-5, atol=1e-30)
 
 
+@pytest.mark.parametrize("S, n, m", [(70_001, 3, 5), (70_000, 2, 4), (2, 1023, 1021), (1, 1, 3),
+                                     (5, 7, 2), (3, 130, 66)])
+def test_rbf_kernel_flat_rows_and_tails(dev, S, n, m):
+    """The flat-output kernel: more pairs than the 65,535 a grid dimension
+    holds, M % 4 != 0 (four outputs that cross a row and a pair, and a
+    scalar tail of S N M mod 4), M below 4; an x2 that starts one float
+    into its storage (no 16-byte alignment) gives the same gram.  rtol
+    1e-5 against the plain version, as chip_smoke.py holds it."""
+    g = _gen(dev, S + n * m)
+    x1, x2 = 3.0 * torch.rand(n, device=dev, generator=g), 3.0 * torch.rand(m, device=dev, generator=g)
+    s2 = torch.rand(S, device=dev, generator=g) + 0.5
+    ls = torch.rand(S, device=dev, generator=g) + 0.1
+    before = ck.LAUNCHES["rbf"]
+    K = ck.rbf_cuda(x1, x2, s2, ls)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["rbf"] == before + 1 and K.shape == (S, n, m)
+    ref = ck.rbf_plain(x1, x2, s2, ls)
+    assert torch.isfinite(K).all()
+    assert float(((K - ref).abs() - 1e-5 * ref.abs() - 1e-30).max()) <= 0.0
+    x2s = torch.cat([x2.new_ones(1), x2])[1:]
+    assert torch.equal(ck.rbf_cuda(x1, x2s, s2, ls), K)
+
+
+def test_rbf_kernel_rounds_as_the_plain_version(dev):
+    """The kernel divides by the division's fast path without its branch
+    (`quotient` in csrc/rbf.cu) where the operands allow it, and by IEEE
+    division elsewhere: at lengthscales from 2^-80 to 2^80, inputs whose
+    quotients land on the body of the exponential (so that an ulp of a
+    quotient shows in K), and some beyond 2^60 (the other branch), the gram
+    equals the plain version's bit for bit."""
+    g = _gen(dev, 11)
+    u = 12.0 * torch.rand(1024, device=dev, generator=g) - 6.0
+    v = 12.0 * torch.rand(64, device=dev, generator=g) - 6.0
+    for e in range(-80, 81, 5):
+        ls = torch.tensor([2.0**e * (1.0 + 0.37 * (e % 3))], device=dev)
+        x1, x2 = u * ls, v * ls
+        K = ck.rbf_cuda(x1, x2, torch.ones(1, device=dev), ls)
+        assert torch.equal(K, ck.rbf_plain(x1, x2, torch.ones(1, device=dev), ls)), e
+
+
+def test_rbf_kernel_nan_and_inf_as_the_plain_version(dev):
+    """NaN and Inf in the inputs, a zero lengthscale and an infinite scale
+    come out where and as the plain version has them (each step an IEEE
+    operation, no reordering)."""
+    x1 = torch.tensor([0.0, float("nan"), float("inf"), -float("inf"), 0.3, 1.0, 2.0], device=dev)
+    x2 = torch.tensor([0.1, float("inf"), 0.5, float("nan"), -1.0], device=dev)
+    s2 = torch.tensor([1.0, float("inf"), 2.0, float("nan")], device=dev)
+    ls = torch.tensor([0.5, 0.5, 0.0, 1.0], device=dev)
+    for a, b in ((x1, x2), (x1, x1), (x2, x1[:4])):
+        K, ref = ck.rbf_cuda(a, b, s2, ls), ck.rbf_plain(a, b, s2, ls)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isnan(K), torch.isnan(ref))
+        assert torch.equal(torch.isinf(K), torch.isinf(ref))
+        fin = torch.isfinite(ref)
+        assert torch.allclose(K[fin], ref[fin], rtol=1e-5, atol=1e-30)
+
+
+# The RBF gram's shapes on the paths, as chip_smoke.py's RBF_PATH_SHAPES:
+# predict_y_mean's cross and inducing grams at ECoG width (inputs on the
+# time axis [0, 800], lengthscale 40, a 0-d scale and lengthscale), the SVC
+# whitening pairs at N = 100 and the SNMGP ones at N = 1024 (inputs on [0, 1])
+RBF_PATH_CASES = [((1, 512, 100), 800.0, None), ((1, 100, 100), 800.0, None),
+                  ((2, 100, 100), 1.0, ((9.0, 0.4), (25.0, 1.0))),
+                  ((2, 1024, 1024), 1.0, ((9.0, 0.4), (1.0, 0.4)))]
+
+
+@pytest.mark.parametrize("shape, span, pairs", RBF_PATH_CASES)
+def test_rbf_kernel_against_float64_at_the_path_shapes(dev, shape, span, pairs):
+    """At each path shape the kernel's f32 gram is at most 3x as far from a
+    float64 run of the plain version as the plain f32 one, + 1e-6 of max
+    (chip_smoke.py's gate)."""
+    S, n, m = shape
+    g = _gen(dev, n + m + S)
+    x1 = span * torch.rand(n, device=dev, generator=g)
+    x2 = torch.linspace(0.0, span, m, device=dev) if n != m else x1
+    if pairs is None:
+        s2, ls = torch.tensor(1.0, device=dev), torch.tensor(40.0, device=dev)
+    else:
+        s2, ls = (torch.tensor(v, device=dev) for v in zip(*pairs))
+    K = ck.rbf_cuda(x1, x2, s2, ls)
+    plain = ck.rbf_plain(x1, x2, s2, ls)
+    ref = ck.rbf_plain(x1.double(), x2.double(), s2.double(), ls.double())
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    err_k = float((K.double() - ref).abs().max()) / scale
+    err_p = float((plain.double() - ref).abs().max()) / scale
+    assert K.shape == (shape[1:] if pairs is None else shape)
+    assert err_k <= 3 * err_p + 1e-6, (err_k, err_p)
+
+
 def _grad_pair(fn, inputs, weights):
     """Gradients of sum(w * fn(*inputs)) by the kernels and by the plain
     versions, float32, and by the plain versions in float64."""

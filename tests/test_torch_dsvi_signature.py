@@ -1,8 +1,8 @@
 """The port's `inference()` takes every keyword of the JAX package's, with
 the same plain defaults, and its `DSVIResult` has every field of the JAX
-one, so a driver written for the JAX package calls the port unchanged (an
-option not ported yet raises NotImplementedError naming its ROADMAP item,
-never TypeError)."""
+one, so a script written for the JAX package calls the port unchanged (the
+one option not ported, `mesh`, raises NotImplementedError naming its
+ROADMAP item, never TypeError)."""
 
 import dataclasses
 import inspect
@@ -47,6 +47,8 @@ def test_rollback_keywords_are_taken_and_the_result_carries_the_new_fields():
     res = td.inference(X, Y, np.linspace(0, 1, 4), 0, 2, itnum=2, show_ELBO=False,
                        rollback_lr_factor=0.25, max_rollbacks=2, device="cpu")
     assert res.rmse_trace == [] and res.rollbacks == 0 and len(res.loss_list) == 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        td.inference(X, Y, np.linspace(0, 1, 4), 0, 2, itnum=1, device="cpu",
-                     divergence_rollback=True, rollback_lr_factor=0.25, max_rollbacks=2)
+    # with divergence_rollback the keywords run the guard (no rollback on this healthy run)
+    guarded = td.inference(X, Y, np.linspace(0, 1, 4), 0, 2, itnum=2, show_ELBO=False,
+                           device="cpu", divergence_rollback=True, rollback_lr_factor=0.25,
+                           max_rollbacks=2)
+    assert guarded.rollbacks == 0 and guarded.loss_list == res.loss_list
