@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of CNMGP (DSVI training, posterior
-prediction and fully-Bayesian NUTS/HMC) on one CUDA card.
+prediction, fully-Bayesian NUTS/HMC/ChEES and SMC model comparison) on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -60,8 +61,20 @@ launches, R-hat, the recovery of the lengthscale and correlation processes,
 and prints samples/s, ESS/s and the host reads; profiles one leapfrog; then
 the whitened SNMGP at N=1024 (MN = 2048, the Kronecker eigen route through
 the matvec kernel): value and gradient against float64, a short HMC run,
-and `mvn_logpdf_kron` timed on both routes at MN = 1024 and 2048.  The
-second-to-last line is a JSON object with one entry per kernel (its
+and `mvn_logpdf_kron` timed on both routes at MN = 1024 and 2048; then
+`scripts/run_mcmc_sim.py --sampler chees` through the port's driver
+(`drivers/mcmc_sim.py`: the same SVC study by ChEES-HMC from its
+overdispersed start, its 400 samples cut to 200, see CHEES_WARMUP):
+acceptance, trajectory length, R-hat and recovery against bounds from the
+JAX package's own run, the log-posterior and gradient at the start
+against float64, and the DIC of the draws; and
+`scripts/run_model_comparison.py` at its defaults, uncut, through
+`drivers/model_comparison.py` (SMC over LMC, SNMGP and SVC, N=48, 512
+particles): each log Z in a band of the JAX package's runs, beta reaching
+1, a nonstationary model best, each tempered density against float64, and
+chol_inv at (512, 96, 96) and gibbs at (512, 48, 48) on its inputs against
+float64 and timed.  Each phase prints its seconds, and the script its
+total.  The second-to-last line is a JSON object with one entry per kernel (its
 other shapes and routes under "more"); the last
 line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -89,8 +102,8 @@ import torch
 # The kernels a DSVI training step launches (the rest serve the other paths).
 TRAIN_KERNELS = ("gibbs", "chol_inv", "quadform_diag", "quadform_diag_dw", "quadform_diag_da")
 # scripts/run_mcmc_sim.py's default run: N, chains, max depth, and its
-# hyperparameters (:115-118) as they are; its 400 warmup and 400 samples cut
-# to FB_WARMUP and FB_SAMPLES.  Every transition of that run saturates the
+# hyperparameters (:115-118, drivers/mcmc_sim.HYPERS) as they are; its 400
+# warmup and 400 samples cut to FB_WARMUP and FB_SAMPLES.  Every transition of that run saturates the
 # depth (255 leapfrogs, 4 chains in lockstep), and a leapfrog pass of the
 # port's eager loop costs ~8.5 ms of host time on the H100 (PERF.md), so the
 # 880 transitions of the full run would take ~30 minutes, more than this
@@ -108,8 +121,6 @@ FB_N, FB_CHAINS, FB_DEPTH = 100, 4, 8
 FB_WARMUP, FB_SAMPLES = 100, 60
 FB_FULL = (400, 400)
 MAP_LR, MAP_STEPS = 0.2, 2000
-FB_HYPERS = dict(mu_tilde_l=-3.0, alpha_tilde_l=3.0, beta_tilde_l=0.4, mu_L=0.0, alpha_L=5.0,
-                 beta_L=1.0, a=1.0, b=1.0)
 # the SNMGP check of the Kronecker eigen route: MN = 2 x 1024 > KRON_DENSE_MAX_DIM
 SNMGP_N = 1024
 # the Cholesky's shapes on the path, (batch, M): the dense NUTS metric of the
@@ -1330,6 +1341,28 @@ def kron_layouts(ck, gen, dev, smi):
     return entries
 
 
+def value_grad_checks(ck, what, fns, q):
+    """`fns` = {"kernels": lp, "plain": lp, "float64": lp}: value and
+    gradient of each at q (f32, and q in float64 for the last; the plain
+    ones with every wrapper on its plain version), the kernels' error at
+    most 3x the plain f32 one against float64 + 1e-4 of max."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer.hmc import (
+        value_and_grad,
+    )
+
+    res = {}
+    for tag, fn in fns.items():
+        with plain_versions(ck) if tag != "kernels" else ExitStack():
+            res[tag] = value_and_grad(fn, q.double() if tag == "float64" else q)
+    torch.cuda.synchronize()
+    for i, name in enumerate(("value", "gradient")):
+        err_k = rel_to_max(res["kernels"][i], res["float64"][i])[1]
+        err_p = rel_to_max(res["plain"][i], res["float64"][i])[1]
+        check(err_k <= 3 * err_p + 1e-4 and bool(torch.isfinite(res["kernels"][i]).all()),
+              f"{what} {name} ({q.shape[0]} rows) vs float64, of max: kernels {err_k:.3e}, plain "
+              f"{err_p:.3e}; tol 3x plain + 1e-4")
+
+
 def whitening_checks(ck, calls, what):
     """The RBF and Cholesky kernels on the inputs the path's own whitening
     factors gave them (recorded in `calls`: the prior grams with their
@@ -1351,89 +1384,11 @@ def whitening_checks(ck, calls, what):
               f"tol M eps")
 
 
-def svc_problem():
-    """The data and empirical init of scripts/run_mcmc_sim.py's default run
-    (:99-111), through the port's copies, as NumPy arrays."""
-    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops.linalg import (
-        lvec_to_uvec,
-    )
-    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils.empirical import (
-        local_estimation,
-        smooth,
-    )
-    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils.sim import sim_mnts
-
-    N, M, T = FB_N, 2, 3
-    x, true_l, true_L_vecs, true_s2e, Y = sim_mnts(M=M, N=N, seed=0)
-    est = local_estimation(x, Y, window_size=max(N // 6, 10))
-    init_tilde_l = np.log(smooth(est["ls"], 10))
-    init_uL = lvec_to_uvec(torch.as_tensor(smooth(est["L_vecs"], 10)), M).numpy().reshape(-1)
-    return dict(x=x, Y=Y, init_tilde_l=init_tilde_l, init_uL=init_uL, true_l=true_l,
-                true_L_vecs=true_L_vecs, true_s2e=true_s2e, N=N, M=M, T=T)
-
-
-def svc_density(ld, prob, dev, dtype, chols=None):
-    """The whitened SVC log-posterior of run_mcmc_sim.py (:129-154) in
-    `dtype` on `dev`: (lp, chol_l, chol_L, x).  The whitening factors are
-    computed (rbf and cholesky), or `chols` cast to `dtype`: a comparison
-    across dtypes shares one pair, since the f32 and float64 factors of
-    these near-singular grams differ at O(1) (their jitters differ too)."""
-    h = FB_HYPERS
-    xt = torch.as_tensor(prob["x"], dtype=dtype, device=dev)
-    Yt = torch.as_tensor(prob["Y"], dtype=dtype, device=dev)
-    if chols is None:
-        chols = ld.svc_whiten_chols(xt, h["alpha_tilde_l"], h["beta_tilde_l"], h["alpha_L"],
-                                    h["beta_L"])
-    chol_l, chol_L = (c.to(dtype) for c in chols)
-
-    def lp(q):
-        return ld.svc_log_posterior_whitened(q, Yt, xt, chol_l, chol_L, mu_tilde_l=h["mu_tilde_l"],
-                                             mu_L=h["mu_L"], a=h["a"], b=h["b"])
-
-    return lp, chol_l, chol_L, xt
-
-
-def whitened_init(prob, chol_l, chol_L):
-    """eta of the empirical init under the whitening factors (run_mcmc_sim.py:135-147)."""
-    N, T, h = prob["N"], prob["T"], FB_HYPERS
-    cl, cL = chol_l.double().cpu(), chol_L.double().cpu()
-    eta_l = torch.linalg.solve_triangular(
-        cl, torch.as_tensor(prob["init_tilde_l"] - h["mu_tilde_l"])[:, None], upper=False)[:, 0]
-    eta_U = torch.linalg.solve_triangular(
-        cL, torch.as_tensor(prob["init_uL"].reshape(N, T) - h["mu_L"]), upper=False)
-    return np.concatenate([eta_l.numpy(), eta_U.numpy().reshape(-1), [np.log(prob["true_s2e"])]])
-
-
-def recovery(prob, samples, chol_l, chol_L):
-    """tilde_l and correlation RMSE and coverage against the truth, from
-    whitened draws (C, S, dim), as run_mcmc_sim.py:252-292 computes them."""
-    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils.posterior_analysis import (
-        lvecs_to_corr,
-        samples2quantiles,
-    )
-
-    N, M, T, h = prob["N"], prob["M"], prob["T"], FB_HYPERS
-    dim = samples.shape[-1]
-    flat = samples.reshape(-1, dim)
-    tl = h["mu_tilde_l"] + flat[:, :N] @ chol_l.double().cpu().numpy().T
-    U = h["mu_L"] + np.einsum("nk,skt->snt", chol_L.double().cpu().numpy(),
-                              flat[:, N:N + N * T].reshape(-1, N, T))
-    true_tl = np.log(prob["true_l"])
-    true_corr = lvecs_to_corr(prob["true_L_vecs"], N, M, constrained=True)[:, 0, 1]
-    tl_q = samples2quantiles(tl)
-    corr_q = samples2quantiles(lvecs_to_corr(U.reshape(-1, N * T), N, M)[:, :, 0, 1])
-    return dict(
-        rmse_tilde_l=float(np.sqrt(np.mean((tl_q[1] - true_tl) ** 2))),
-        rmse_corr=float(np.sqrt(np.mean((corr_q[1] - true_corr) ** 2))),
-        coverage_tilde_l=float(np.mean((true_tl > tl_q[0]) & (true_tl < tl_q[2]))),
-        coverage_corr=float(np.mean((true_corr > corr_q[0]) & (true_corr < corr_q[2]))),
-    )
-
-
 def fb_svc_nuts(ck, dev, smi):
     """scripts/run_mcmc_sim.py's default study through the port on the card.
     Returns (launches of the path, metrics, the (4, 200, 200) covariance at
     the init for the kernel checks)."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.drivers import mcmc_sim
     from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer.hmc import (
         value_and_grad,
     )
@@ -1447,8 +1402,8 @@ def fb_svc_nuts(ck, dev, smi):
         potential_scale_reduction,
     )
 
-    prob = svc_problem()
-    h = FB_HYPERS
+    prob = mcmc_sim.svc_problem(FB_N)
+    h = mcmc_sim.HYPERS
     gen = torch.Generator(device=dev).manual_seed(1)
 
     # ---- the main path: whitening factors, then NUTS (counts from 0)
@@ -1464,8 +1419,9 @@ def fb_svc_nuts(ck, dev, smi):
     ck.reset_launches()
     whiten_calls = {}
     with recording(ck, ("rbf", "cholesky"), whiten_calls):
-        lp, chol_l, chol_L, xt = svc_density(ld, prob, dev, torch.float32)
-    init = whitened_init(prob, chol_l, chol_L)
+        dens = mcmc_sim.svc_density(prob, dev, torch.float32)
+    lp, chol_l, chol_L, init = dens["lp"], dens["chol_l"], dens["chol_L"], dens["init"]
+    xt = torch.as_tensor(prob["x"], dtype=torch.float32, device=dev)
     dim = init.shape[0]
     q_map, losses = run_map(lambda q: -lp(q), torch.as_tensor(init, dtype=torch.float32,
                                                               device=dev)[None],
@@ -1488,7 +1444,7 @@ def fb_svc_nuts(ck, dev, smi):
     check(bool(np.all(np.isfinite(draws))), f"SVC NUTS: all {draws.size} draw values finite")
     rhat = potential_scale_reduction(samples.double().cpu()).numpy()
     ess = effective_sample_size(samples.double().cpu()).numpy()
-    rec = recovery(prob, draws, chol_l, chol_L)
+    rec = mcmc_sim.recovery(dens, draws)
     n_draws = FB_CHAINS * FB_SAMPLES
     steps = info["num_steps"].double()
     metrics = dict(
@@ -1517,20 +1473,11 @@ def fb_svc_nuts(ck, dev, smi):
     # plain float64, on the whitening factors of the run
     q_emp = torch.as_tensor(init, dtype=torch.float32, device=dev)[None] + 0.01 * torch.randn(
         FB_CHAINS, dim, device=dev, generator=torch.Generator(device=dev).manual_seed(3))
+    fns = {tag: mcmc_sim.svc_density(prob, dev, dt, chols=(chol_l, chol_L))["lp"]
+           for tag, dt in (("kernels", torch.float32), ("plain", torch.float32),
+                           ("float64", torch.float64))}
     for where, q in (("the empirical init", q_emp), ("the MAP start", q0)):
-        res = {}
-        for tag in ("kernels", "plain", "float64"):
-            with plain_versions(ck) if tag != "kernels" else ExitStack():
-                dt = torch.float64 if tag == "float64" else torch.float32
-                lp_t = svc_density(ld, prob, dev, dt, chols=(chol_l, chol_L))[0]
-                res[tag] = value_and_grad(lp_t, q.to(dt))
-        torch.cuda.synchronize()
-        for i, what in enumerate(("log-posterior", "gradient")):
-            err_k = rel_to_max(res["kernels"][i], res["float64"][i])[1]
-            err_p = rel_to_max(res["plain"][i], res["float64"][i])[1]
-            check(err_k <= 3 * err_p + 1e-4,
-                  f"SVC whitened {what} at {where} (4 chains) vs float64, of max: kernels "
-                  f"{err_k:.3e}, plain {err_p:.3e}; tol 3x plain + 1e-4")
+        value_grad_checks(ck, f"SVC whitened log-posterior at {where}", fns, q)
 
     # ---- where a leapfrog's time goes
     q = samples[:, -1].contiguous()
@@ -1594,7 +1541,7 @@ def fb_snmgp(ck, dev, smi):
         chols = ld.snmgp_whiten_chols(torch.as_tensor(x, dtype=torch.float32, device=dev),
                                       *SNMGP_HYPERS.values())
     lp = problem(torch.float32, chols)
-    v, g = value_and_grad(lp, q0)
+    value_and_grad(lp, q0)
     pos, info = run_hmc(lp, q0, gen, num_warmup=20, num_samples=20, num_steps=8)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1604,15 +1551,9 @@ def fb_snmgp(ck, dev, smi):
           f"SNMGP eigen route (N={N}, MN={M * N}): value, gradient and HMC 20+20 in {wall:.2f} s, "
           f"finite, launches {launched}; accept {float(info['accept_prob'].mean()):.3f}")
     whitening_checks(ck, whiten_calls, "SNMGP")
-    with plain_versions(ck):
-        vp, gp = value_and_grad(problem(torch.float32, chols), q0)
-        v64, g64 = value_and_grad(problem(torch.float64, chols), q0.double())
-    torch.cuda.synchronize()
-    for what, a, b, c in (("log-posterior", v, vp, v64), ("gradient", g, gp, g64)):
-        err_k, err_p = rel_to_max(a, c)[1], rel_to_max(b, c)[1]
-        check(err_k <= 3 * err_p + 1e-4,
-              f"SNMGP whitened {what} (4 chains) vs float64, of max: kernels {err_k:.3e}, plain "
-              f"{err_p:.3e}; tol 3x plain + 1e-4")
+    value_grad_checks(ck, "SNMGP whitened log-posterior", {
+        "kernels": lp, "plain": problem(torch.float32, chols), "float64": problem(torch.float64, chols)},
+        q0)
     print(f"time of one value_and_grad of the SNMGP density (N={N}, 4 chains): "
           f"{host_ms(lambda: value_and_grad(lp, q0), reps=10):.3f} ms host clock ({smi})")
 
@@ -1633,6 +1574,239 @@ def fb_snmgp(ck, dev, smi):
               f"clock to a sync; values agree to {rel_to_max(vd, ve)[1]:.2e} of max ({smi})")
     return launched
 
+
+
+# scripts/run_mcmc_sim.py --sampler chees at its defaults (N=100, 4 chains,
+# the whitened SVC, dim 401; chees_warmup's max_num_steps 1024), through the
+# port's driver (drivers/mcmc_sim.py); the width is not cut.  Its 400
+# warmup and 400 samples took 267 s on the H100 (PERF.md, PR 10; 40
+# leapfrogs an iteration, 52 once adapted, at ~7.3 ms of host time each),
+# which on the slowest host seen (1.8x) would take this script past its
+# time limit.  The warmup stays whole: cut to 200, the trajectory length
+# did not grow (6 leapfrogs an iteration) and the chains did not mix
+# (R-hat max 9.8).  The samples are cut to 200 (~145 s on the H100's
+# fastest host, ~1060 s for the script on the slowest): at 100, R-hat max
+# was 1.104 against the 1.1 gate below.
+CHEES_WARMUP, CHEES_SAMPLES = 400, 200
+# The gates of the ChEES study: R-hat max, tilde_l RMSE and corr RMSE.  The
+# JAX package's own CPU run of the same settings with 100 samples (`python
+# scripts/run_mcmc_sim.py --cpu --sampler chees --warmup 400 --samples 100`,
+# float32, 5794 s) did not converge: R-hat max 31,529,456, tilde_l RMSE
+# 2.053, corr RMSE 0.528, median ESS 5.2, mean accept 0.651.  Twice that
+# bounds nothing, so the gates are the NUTS phase's (about twice the JAX
+# package's recorded NUTS recovery, PERF.md section 2), on the same study.
+CHEES_RHAT_MAX, CHEES_RMSE_TILDE_L, CHEES_RMSE_CORR = 1.1, 0.25, 0.15
+# ChEES's draws thinned to at most this many for the DIC (one deviance call)
+DIC_DRAWS = 200
+# scripts/run_model_comparison.py at its defaults (N=48, 512 particles, 5
+# mutations of 16 leapfrogs), uncut, through drivers/model_comparison.py.
+# Each model's log Z must lie in its band: the range of the JAX package's
+# own runs at these settings on the CPU (float32) over three key sets,
+# `PYTHONPATH=. python tests/jax_model_comparison.py` (key sets 0, 100,
+# 200: LMC -66.587, NaN, -65.938; SNMGP -34.370, -34.554, -35.133; SVC
+# -26.192, -25.954, -25.992), widened by its own width on each side.  LMC's
+# band is that of its two finite runs: at key set 100 the JAX package's LMC
+# log Z came out NaN (PERF.md, PR 10).
+SMC_LOG_Z_BANDS = {"lmc": (-67.24, -65.29), "snmgp": (-35.90, -33.61), "svc": (-26.43, -25.72)}
+SMC_MAX_STAGES = 100  # run_smc's default
+SMC_TEMPER = 0.5  # the inverse temperature of the density checks
+
+
+def fb_chees(ck, dev, smi):
+    """scripts/run_mcmc_sim.py --sampler chees through the port's driver on
+    the card.  Returns the launches of the path."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.drivers import mcmc_sim
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import (
+        logdensities as ld,
+    )
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops.linalg import (
+        uvec_to_lvec,
+    )
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils import metrics
+
+    print(f"SVC ChEES: run_mcmc_sim.py --sampler chees, its {FB_FULL[0]} warmup and "
+          f"{FB_FULL[1]} samples cut to {CHEES_WARMUP} and {CHEES_SAMPLES}; N={FB_N}, "
+          f"{FB_CHAINS} chains, max_num_steps 1024 as there", flush=True)
+    t0 = time.perf_counter()
+
+    def progress(phase, i):
+        if (i + 1) % 50 == 0:
+            print(f"SVC ChEES {phase} {i + 1}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    args = mcmc_sim.parse_args(["--sampler", "chees", "--N", str(FB_N), "--chains", str(FB_CHAINS),
+                                "--warmup", str(CHEES_WARMUP), "--samples", str(CHEES_SAMPLES)])
+    ck.reset_launches()
+    out, study = mcmc_sim.run_study(args, progress=progress)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = dict(ck.LAUNCHES)
+    need = ("gibbs", "chol_inv", "rbf", "cholesky")
+    check(all(launched[k] > 0 for k in need),
+          f"SVC ChEES (N={FB_N}, dim {study.inits.shape[1]}, {FB_CHAINS} chains) launched {launched}")
+    info = study.info
+    draws = study.samples.double().cpu().numpy()
+    check(bool(np.all(np.isfinite(draws))), f"SVC ChEES: all {draws.size} draw values finite")
+    iters = CHEES_WARMUP + max(CHEES_WARMUP // 4, 1) + CHEES_SAMPLES
+    eps, traj = float(info["step_size"]), float(info["trajectory_length"])
+    metrics_ = dict(out, wall_s_with_setup=wall, step_size=eps, trajectory_length=traj,
+                    leapfrogs=info["leapfrogs"], leapfrogs_per_iteration=info["leapfrogs"] / iters,
+                    warmup_leapfrogs=info["warmup_leapfrogs"],
+                    sampling_leapfrogs_per_iteration=float(info["num_steps"].double().mean()),
+                    host_reads=info["host_reads"],
+                    ms_per_leapfrog=1e3 * out["wall_s"] / max(info["leapfrogs"], 1),
+                    warmup_accept_mean=float(info["warmup_accept_mean"]))
+    print("SVC ChEES " + json.dumps(metrics_) + f" ({smi})")
+    check(0.4 < out["mean_accept"] < 0.95, f"SVC ChEES mean accept {out['mean_accept']:.4f} in (0.4, 0.95)")
+    check(traj > eps, f"SVC ChEES trajectory length {traj:.5f} > step size {eps:.5f}")
+    check(out["rhat_max"] <= CHEES_RHAT_MAX, f"SVC ChEES R-hat max {out['rhat_max']:.4f} <= {CHEES_RHAT_MAX}")
+    check(out["rmse_tilde_l"] <= CHEES_RMSE_TILDE_L and out["rmse_corr"] <= CHEES_RMSE_CORR,
+          f"SVC ChEES recovery: tilde_l RMSE {out['rmse_tilde_l']:.4f} <= {CHEES_RMSE_TILDE_L}, "
+          f"corr RMSE {out['rmse_corr']:.4f} <= {CHEES_RMSE_CORR}")
+
+    # ---- the log-posterior and its gradient at the ChEES start
+    prob = study.problem
+    chols = (prob["chol_l"], prob["chol_L"])
+    fns = {"kernels": prob["lp"],
+           "plain": mcmc_sim.svc_density(prob, dev, torch.float32, chols=chols)["lp"],
+           "float64": mcmc_sim.svc_density(prob, dev, torch.float64, chols=chols)["lp"]}
+    value_grad_checks(ck, "SVC whitened log-posterior at the ChEES start", fns, study.inits)
+
+    # ---- DIC of the draws (centered, the deviance's constrained layout)
+    N, M, T = prob["N"], prob["M"], prob["T"]
+    flat = draws.reshape(-1, draws.shape[-1])
+    flat = flat[np.linspace(0, flat.shape[0] - 1, min(DIC_DRAWS, flat.shape[0])).astype(int)]
+    cen = torch.as_tensor(mcmc_sim.centered_draws(prob, flat))
+    lvecs = uvec_to_lvec(cen[:, N:N + N * T].reshape(-1, N, T), M).reshape(-1, N * T)
+    pars = torch.cat([cen[:, :N], lvecs, cen[:, -1:]], dim=1)
+    dics = {}
+    for tag, dt in (("kernels", torch.float32), ("float64", torch.float64)):
+        with plain_versions(ck) if tag != "kernels" else ExitStack():
+            t1 = time.perf_counter()
+            dics[tag] = metrics.dic(pars.to(dev, dt), ld.svc_deviance,
+                                    torch.as_tensor(prob["Y"], dtype=dt, device=dev),
+                                    torch.as_tensor(prob["x"], dtype=dt, device=dev))
+            dics[tag + "_s"] = time.perf_counter() - t1
+    check(math.isfinite(dics["kernels"]),
+          f"SVC DIC of {pars.shape[0]} ChEES draws (metrics.dic, one deviance call): "
+          f"{dics['kernels']:.4f} f32 with the kernels in {dics['kernels_s']:.3f} s, "
+          f"{dics['float64']:.4f} float64 plain ({smi})")
+    print(f"SVC ChEES phase: {time.perf_counter() - t0:.1f} s, sampling {out['wall_s']:.1f} s; "
+          f"{out['samples_per_s']:.3f} samples/s, ESS/s {out['ess_per_s']:.4f}, "
+          f"{metrics_['leapfrogs_per_iteration']:.1f} leapfrogs an iteration, "
+          f"{info['host_reads']} host reads ({smi})", flush=True)
+    return launched
+
+
+def fb_smc(ck, dev, smi):
+    """scripts/run_model_comparison.py at its defaults through the port's
+    driver on the card, then its densities and kernels at its shapes.
+    Returns (launches of the path, {kernel: timing entries})."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.drivers import (
+        model_comparison as mc,
+    )
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer.hmc import (
+        value_and_grad,
+    )
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops.distributions import (
+        KRON_DENSE_MAX_DIM,
+    )
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils.sim import sim_mnts
+
+    args = mc.parse_args([])
+    print(f"SMC model comparison: run_model_comparison.py at its defaults, N={args.N}, "
+          f"{args.particles} particles, {args.mutations} mutations of {mc.NUM_LEAPFROG} "
+          f"leapfrogs", flush=True)
+    t0 = time.perf_counter()
+    ck.reset_launches()
+    out = mc.run(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = dict(ck.LAUNCHES)
+    check(all(launched[k] > 0 for k in ("gibbs", "chol_inv", "rbf", "cholesky"))
+          and launched["kron_mv"] == 0,
+          f"SMC (MN = {2 * args.N} <= {KRON_DENSE_MAX_DIM}: the dense route) launched {launched}")
+    print("SMC " + json.dumps(out) + f" in {wall:.1f} s ({smi})", flush=True)
+    for name in mc.MODELS:
+        r, betas = out[name], out["betas"][name]
+        lo, hi = SMC_LOG_Z_BANDS[name]
+        check(math.isfinite(r["log_z"]) and lo <= r["log_z"] <= hi,
+              f"SMC {name}: log Z {r['log_z']:.4f} finite, in the JAX band [{lo}, {hi}]")
+        check(r["stages"] < SMC_MAX_STAGES and betas[-1] == 1.0,
+              f"SMC {name}: beta = 1 after {r['stages']} stages < {SMC_MAX_STAGES}, "
+              f"{r['wall_s']:.1f} s")
+    check(out["best_model"] != "lmc", f"SMC best model {out['best_model']} (not the stationary LMC)")
+
+    # ---- each tempered density at 512 prior draws against float64
+    x, _, _, _, Y = sim_mnts(M=2, N=args.N, seed=0)
+    as_t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
+    m32 = mc.make_models(as_t(x, torch.float32), as_t(Y, torch.float32))
+    m64 = mc.make_models(as_t(x, torch.float64), as_t(Y, torch.float64),
+                         {n: m32[n].chols for n in ("snmgp", "svc")})
+    tempered = lambda m: lambda q: m.log_prior(q) + SMC_TEMPER * m.log_like(q)  # noqa: E731
+    calls = {}
+    for name in mc.MODELS:
+        q = m32[name].prior_sampler(torch.Generator(device=dev).manual_seed(11), args.particles)
+        with recording(ck, ("chol_inv", "gibbs"), calls) if name == "svc" else ExitStack():
+            fns = {"kernels": tempered(m32[name]), "plain": tempered(m32[name]),
+                   "float64": tempered(m64[name])}
+            value_grad_checks(ck, f"SMC {name} density at beta {SMC_TEMPER}", fns, q)
+    lp = tempered(m32["svc"])
+    print(f"time of one value_and_grad of the SMC SVC density ({args.particles} particles): "
+          f"{host_ms(lambda: value_and_grad(lp, q)):.3f} ms host clock, median of 20 ({smi})")
+    print(f"profile of one value_and_grad of the SMC SVC density ({args.particles} particles):")
+    profile_breakdown(lambda: value_and_grad(lp, q), watch=("chol_inv", "gibbs"))
+
+    # ---- chol_inv and gibbs at this path's shapes, on the SVC's own inputs
+    more = {}
+    (K,) = calls["chol_inv"][0]
+    b, m = K.shape[0], K.shape[-1]
+    (L, Li), (Lp, Lip), (L64, Li64) = ck.chol_inv_cuda(K), ck.chol_inv_plain(K), ck.chol_inv_plain(K.double())
+    torch.cuda.synchronize()
+    shape = f"({b}, {m}, {m}) SMC SVC covariances, {ck.chol_inv_route(m)}"
+    witnessed("chol_inv L", L, Lp, L64, 1e-6, shape)
+    witnessed("chol_inv L^-1", Li, Lip, Li64, 1e-6, shape)
+    del L, Li, Lp, Lip, L64, Li64
+    more["chol_inv"] = [timing_entry(
+        f"chol_inv ({b},{m},{m}) SMC", lambda: ck.chol_inv_cuda(K), lambda: ck.chol_inv_plain(K),
+        None, bound_ms(4 * b * (m * (m + 1) // 2 + 2 * m * m), b * 2 * m**3 / 3))]
+    x1, x2, l1, l2, s2 = calls["gibbs"][0]
+    S, n1, n2 = l1.shape[0], x1.shape[0], x2.shape[0]
+    G, Gp = ck.gibbs_cuda(x1, x2, l1, l2, s2), ck.gibbs_plain(x1, x2, l1, l2, s2)
+    G64 = ck.gibbs_plain(x1.double(), x2.double(), l1.double(), l2.double(), s2)
+    torch.cuda.synchronize()
+    witnessed("gibbs", G, Gp, G64, 1e-6, f"({S}, {n1}, {n2}) SMC SVC lengthscales")
+    el = S * n1 * n2
+    more["gibbs"] = [timing_entry(
+        f"gibbs ({S},{n1},{n2}) SMC", lambda: ck.gibbs_cuda(x1, x2, l1, l2, s2),
+        lambda: ck.gibbs_plain(x1, x2, l1, l2, s2), None,
+        bound_ms(4 * (n1 + n2 + S * (n1 + n2) + el), el * 15), inner=10)]
+    print(f"SMC phase: {time.perf_counter() - t0:.1f} s ({smi})", flush=True)
+    return launched, more
+
+
+def samplers_main() -> int:
+    """The ChEES and SMC phases alone:
+    python3 -u -c 'import sys, chip_smoke; sys.exit(chip_smoke.samplers_main())'"""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"card: {smi}")
+    ck.build()
+    dev = torch.device("cuda")
+    for phase in (fb_chees, fb_smc):
+        t0 = time.perf_counter()
+        phase(ck, dev, smi)
+        print(f"{phase.__name__} {time.perf_counter() - t0:.1f} s", flush=True)
+    return 1 if FAILURES else 0
 
 
 def main() -> int:
@@ -1666,6 +1840,7 @@ def main() -> int:
     )
 
     # ---------------------------------------------------------------- set-up
+    started = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1925,8 +2100,16 @@ def main() -> int:
     t0 = time.perf_counter()
     sn_launched = fb_snmgp(ck, dev, smi)
     print(f"SNMGP phase {time.perf_counter() - t0:.1f} s; launches {sn_launched}")
+    t0 = time.perf_counter()
+    ch_launched = fb_chees(ck, dev, smi)
+    print(f"ChEES phase {time.perf_counter() - t0:.1f} s; launches {ch_launched}")
+    t0 = time.perf_counter()
+    smc_launched, smc_more = fb_smc(ck, dev, smi)
+    print(f"SMC phase {time.perf_counter() - t0:.1f} s; launches {smc_launched}")
+    for name, entries in smc_more.items():
+        more[name] = more[name] + entries
     for k in ck.KERNELS:
-        launches[k] += fb_launched[k] + sn_launched[k]
+        launches[k] += fb_launched[k] + sn_launched[k] + ch_launched[k] + smc_launched[k]
     for name, ((kern, plain, lib, inner, (b_ms, b_by)), _) in fb.items():
         k_ms = device_ms(kern, inner=inner)
         p_ms = device_ms(plain, inner=inner)
@@ -1962,6 +2145,7 @@ def main() -> int:
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
                         **tc_bounds.get(n, {}), "more": more.get(n, [])})
     kernels[[k["name"] for k in kernels].index("chol_inv")]["witness"] = witness
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, the build included ({smi})")
     print(json.dumps({"kernels": kernels}))
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)

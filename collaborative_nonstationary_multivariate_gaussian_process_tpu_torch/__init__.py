@@ -1,13 +1,15 @@
-"""CNMGP in PyTorch and CUDA: DSVI training and posterior prediction of the
+"""CNMGP in PyTorch and CUDA: DSVI training, posterior prediction and the
+fully-Bayesian samplers (NUTS, HMC, ChEES-HMC, SMC model comparison) of the
 Collaborative Nonstationary Multivariate Gaussian Process on an NVIDIA H100.
 
 Mirrors the layout of the JAX package
 `collaborative_nonstationary_multivariate_gaussian_process_tpu`, which stays
-the numerical reference.  This package imports neither JAX nor that package.
-Plain tensor code is PyTorch; the five Pallas kernels of the path (Gibbs
-gram, fused Cholesky + triangular inverse, variance quadratic form and its
-two backward kernels) are hand-written CUDA kernels under `csrc/`, built
-with `nvcc` at first use.
+the numerical reference; `drivers/` holds the ports of its scripts.  This
+package imports neither JAX nor that package.  Plain tensor code is
+PyTorch; the eight Pallas kernels (Gibbs and RBF grams, Cholesky, fused
+Cholesky + triangular inverse, Kronecker matvec, variance quadratic form
+and its two backward kernels) are hand-written CUDA kernels under `csrc/`,
+built with `nvcc` at first use.
 """
 
 from . import config, infer, models, ops, utils  # noqa: F401

@@ -38,10 +38,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("svc_init_study: no CUDA device is available", file=sys.stderr)
         return 2
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.drivers import mcmc_sim
     from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer.nuts import run_nuts
-    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import (
-        logdensities as ld,
-    )
     from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops import (
         cuda_kernels as ck,
     )
@@ -54,9 +52,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     ck.build()
-    prob = cs.svc_problem()
-    lp, chol_l, chol_L, _ = cs.svc_density(ld, prob, dev, torch.float32)
-    init = torch.as_tensor(cs.whitened_init(prob, chol_l, chol_L), dtype=torch.float32, device=dev)
+    dens = mcmc_sim.svc_density(mcmc_sim.svc_problem(cs.FB_N), dev, torch.float32)
+    lp = dens["lp"]
+    init = torch.as_tensor(dens["init"], dtype=torch.float32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     q0 = init[None] + 0.01 * torch.randn(args.chains, init.shape[0], device=dev, generator=gen)
     t0 = time.perf_counter()
@@ -68,7 +66,7 @@ def main() -> int:
     groups = []
     for g in range(args.chains // 4):
         part = draws[4 * g:4 * g + 4]
-        rec = cs.recovery(prob, part.numpy(), chol_l, chol_L)
+        rec = mcmc_sim.recovery(dens, part.numpy())
         groups.append(dict(rhat_max=float(potential_scale_reduction(part).max()),
                            rmse_tilde_l=rec["rmse_tilde_l"], rmse_corr=rec["rmse_corr"]))
     print(json.dumps(dict(

@@ -810,3 +810,141 @@ def test_chol_inv_float64_witness_at_the_path_priors(dev, prior):
     torch.cuda.synchronize()
     assert torch.isfinite(L).all() and torch.isfinite(Linv).all()
     _witnessed_chol_inv(K, L, Linv)
+
+
+# ---------------------------------------------------------------------------
+# ChEES and SMC on the card (drivers.model_comparison's shapes)
+# ---------------------------------------------------------------------------
+
+
+def _smc_svc_model(dev, dtype=torch.float32, chols=None):
+    """The model comparison's whitened SVC at its defaults, N = 48, and its
+    whitening factors (computed in f32 unless given)."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.drivers import (
+        model_comparison,
+    )
+
+    x, _, _, _, Y = sim_mnts(M=2, N=48, seed=0)
+    xt = torch.as_tensor(x, dtype=dtype, device=dev)
+    Yt = torch.as_tensor(Y, dtype=dtype, device=dev)
+    if chols is None:
+        chols = ld.svc_whiten_chols(xt, 3.0, 0.4, 1.0, 1.0)
+    return model_comparison.make_models(xt, Yt, {"svc": chols})["svc"], chols
+
+
+def test_chol_inv_and_gibbs_at_the_smc_shapes(dev):
+    """chol_inv at (512, 96, 96), on the SVC covariances of 512 prior draws
+    as the log-likelihood builds them, and gibbs at (512, 48, 48), on their
+    lengthscales: against float64 runs of the plain versions (3x the plain
+    f32 error + 1e-6 of max), the Gibbs gram also within rtol 1e-5 of the
+    plain f32 one."""
+    model, _ = _smc_svc_model(dev)
+    q = model.prior_sampler(_gen(dev, 23), 512)
+    calls = {}
+    with ExitStack() as stack:
+        for name in ("chol_inv", "gibbs"):
+            def rec(*args, _real=getattr(ck, f"{name}_cuda"), _name=name):
+                calls.setdefault(_name, args)
+                return _real(*args)
+
+            stack.enter_context(mock.patch.object(ck, f"{name}_cuda", rec))
+        model.log_like(q)
+    (K,) = calls["chol_inv"]
+    assert K.shape == (512, 96, 96)
+    L, Linv = ck.chol_inv_cuda(K)
+    torch.cuda.synchronize()
+    assert torch.isfinite(L).all() and torch.isfinite(Linv).all()
+    _witnessed_chol_inv(K, L, Linv)
+    x1, x2, l1, l2, s = calls["gibbs"]
+    G = ck.gibbs_cuda(x1, x2, l1, l2, s)
+    assert G.shape == (512, 48, 48)
+    plain = ck.gibbs_plain(x1, x2, l1, l2, s)
+    ref = ck.gibbs_plain(x1.double(), x2.double(), l1.double(), l2.double(), s)
+    assert torch.allclose(G, plain, rtol=1e-5, atol=1e-30)
+    err_k = float((G.double() - ref).abs().max())
+    err_p = float((plain.double() - ref).abs().max())
+    assert err_k <= 3 * err_p + 1e-6 * float(ref.abs().max()), (err_k, err_p)
+
+
+class _FixedDraws:
+    def __init__(self, z, u):
+        self.z, self.u = z, u
+
+    def momentum(self):
+        return self.z
+
+    def accept(self):
+        return self.u
+
+
+def test_chees_transition_on_the_card_launches_the_kernels(dev):
+    """One `_chees_kernel` transition of 4 chains on the whitened SVC
+    density (N = 100, dim 401), f32 with the kernels and with the plain
+    versions, and float64: the kernels' positions, log-probs and ChEES
+    gradient at most 3x the plain f32 error of float64 + 1e-4 of max (every
+    proposal accepted, u = 0, so that no accept decision differs)."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer import chees
+
+    x, _, _, _, Y = sim_mnts(M=2, N=100, seed=0)
+    with _plain_versions():
+        chols = ld.svc_whiten_chols(torch.as_tensor(x, device=dev), 3.0, 0.4, 5.0, 1.0)
+    g = _gen(dev, 29)
+    q0 = 0.3 * torch.randn(4, 401, device=dev, generator=g, dtype=torch.float64)
+    q0[:, -1] = -3.0
+    z = torch.randn(4, 401, device=dev, generator=g, dtype=torch.float64)
+    res = {}
+    for tag, dtype, plain in (("kernels", torch.float32, False), ("plain", torch.float32, True),
+                              ("float64", torch.float64, True)):
+        xt, Yt = (torch.as_tensor(a, dtype=dtype, device=dev) for a in (x, Y))
+        cl, cL = (c.to(dtype) for c in chols)
+
+        def lp(q):
+            return ld.svc_log_posterior_whitened(q, Yt, xt, cl, cL, mu_tilde_l=-3.0)
+
+        ck.reset_launches()
+        with _plain_versions() if plain else ExitStack():
+            state = chees.init_carry(lp, q0.to(dtype), 0.01, 0.01).state
+            new, aps, _, grad_t, n = chees._chees_kernel(
+                lp, state, _FixedDraws(z.to(dtype), torch.zeros(4, dtype=dtype, device=dev)),
+                torch.tensor(0.01, dtype=dtype, device=dev), torch.tensor(0.05, dtype=dtype, device=dev),
+                torch.ones(401, dtype=dtype, device=dev), 1024, lambda t: t.mean(0))
+        torch.cuda.synchronize()
+        launched = dict(ck.LAUNCHES)
+        assert n == 5
+        if plain:
+            assert sum(launched.values()) == 0, launched
+        else:
+            assert launched["gibbs"] >= 6 and launched["chol_inv"] >= 6, launched
+        res[tag] = (new.position, new.log_prob, grad_t)
+    for i in range(3):
+        ref = res["float64"][i]
+        scale = float(ref.abs().max())
+        err_k = float((res["kernels"][i].double() - ref).abs().max())
+        err_p = float((res["plain"][i].double() - ref).abs().max())
+        assert err_k <= 3 * err_p + 1e-4 * scale, (i, err_k, err_p, scale)
+
+
+def test_smc_stage_on_the_card_launches_the_kernels(dev):
+    """One tempering stage of the SVC model (N = 48, 512 particles, one
+    mutation of 16 leapfrogs): finite, beta in (0, 1], chol_inv and gibbs
+    launched every gradient; the particles' log-likelihoods against
+    float64 (3x the plain f32 error + 1e-4 of max)."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer.smc import run_smc
+
+    model, chols = _smc_svc_model(dev)
+    q = model.prior_sampler(_gen(dev, 31), 512)
+    ck.reset_launches()
+    pos, info = run_smc(model.log_prior, model.log_like, q, _gen(dev, 32), num_mutations=1,
+                        max_stages=1)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["chol_inv"] >= 18 and ck.LAUNCHES["gibbs"] >= 18, ck.LAUNCHES
+    assert info["num_stages"] == 1 and 0.0 < float(info["betas"][0]) <= 1.0
+    assert torch.isfinite(pos).all() and bool(torch.isfinite(info["log_z"]))
+    got = model.log_like(pos)
+    with _plain_versions():
+        plain = model.log_like(pos)
+        ref = _smc_svc_model(dev, torch.float64, chols)[0].log_like(pos.double())
+    scale = float(ref.abs().max())
+    err_k = float((got.double() - ref).abs().max())
+    err_p = float((plain.double() - ref).abs().max())
+    assert err_k <= 3 * err_p + 1e-4 * scale, (err_k, err_p, scale)

@@ -21,6 +21,12 @@ from collaborative_nonstationary_multivariate_gaussian_process_tpu.utils import 
 )
 from collaborative_nonstationary_multivariate_gaussian_process_tpu.utils import sim as jsim
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch import config as tconfig
+from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.drivers import (
+    mcmc_sim,
+    model_comparison,
+)
+from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer.chees import run_chees
+from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer.smc import run_smc
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import cnmgp as tc
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import predict as tp
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils import data as tdata
@@ -46,6 +52,8 @@ def test_importing_the_port_loads_no_jax():
         f"import {PORT}.utils.sim, {PORT}.utils.data, {PORT}.utils.metrics\n"
         f"import {PORT}.models.logdensities, {PORT}.ops.kron, {PORT}.ops.distributions\n"
         f"import {PORT}.infer.hmc, {PORT}.infer.nuts, {PORT}.infer.map, {PORT}.infer.dsvi\n"
+        f"import {PORT}.infer.chees, {PORT}.infer.smc\n"
+        f"import {PORT}.drivers.mcmc_sim, {PORT}.drivers.model_comparison\n"
         f"import {PORT}.parallel.sharded_mcmc, {PORT}.utils.empirical\n"
         f"import {PORT}.utils.posterior_analysis\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', '{JAX_PACKAGE}'))\n"
@@ -81,6 +89,23 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tc.init_params(torch.Generator().manual_seed(0), 2, 4)
     assert tp.predict_Y(params, Z, X_list, device="cpu").shape == (2,)
+
+    def lp(q):
+        return -0.5 * torch.sum(q**2, dim=-1)
+
+    q0 = np.zeros((2, 3))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_chees(lp, q0, torch.Generator(), num_warmup=2, num_samples=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_smc(lp, lp, q0, torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mcmc_sim.run(["--N", "8", "--warmup", "2", "--samples", "2", "--sampler", "chees"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model_comparison.run(["--N", "8", "--particles", "8", "--mutations", "1"])
+    pos, _ = run_chees(lp, q0, torch.Generator(), num_warmup=2, num_samples=2, device="cpu")
+    assert pos.device.type == "cpu" and pos.shape == (2, 2, 3)
+    _, info = run_smc(lp, lp, q0, torch.Generator(), num_leapfrog=2, device="cpu")
+    assert info["log_z"].device.type == "cpu"
 
 
 def test_config_constants_match_the_jax_package():
