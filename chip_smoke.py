@@ -39,7 +39,16 @@ two outputs alone, and the factor alone against float64 and cuSOLVER);
 runs the `dsvi_options` phase (a forced divergence caught by
 `divergence_rollback`, an ECoG epoch with the test RMSE every step and one
 with `chunked_test_trace`, and a checkpoint saved, resumed and, where
-ml_dtypes imports, saved with bf16 moments).  Then the
+ml_dtypes imports, saved with bf16 moments); runs the fused trainer
+(`scan_epochs_phase`, after the training phase): two epochs of
+`make_scan_epochs` replayed as CUDA graphs at ECoG width against the eager
+epoch body from the same state, in float32 with the kernels (the launches
+of a replayed epoch: the capture's count a step times its steps) and in
+float64, steps/s of the graph against the eager step at ECoG M = 100 and
+200 and PM2.5-sub with the device's busy share, the capture's seconds and
+the graph pools' memory, and `inference()` on the graph through a forced
+rollback.  Every `inference()` epoch without a per-step probe runs on the
+graphs, and its launches are counted at each replay.  Then the
 fully-Bayesian path: holds the RBF, Cholesky, Kronecker-matvec and
 Cholesky-inverse kernels against float64 runs of their plain versions at
 the path's shapes (the Cholesky-inverse at M = 200 and 1024, NaN on a
@@ -314,15 +323,16 @@ def recording(ck, names, calls):
         yield
 
 
-def backward_kernels(ck, gen, dev, M=M_ECOG):
-    """The quadform's two backward kernels at the training shapes (A (M,
-    512), lower-triangular W (3003, M, M), random vbar), each f32 result
-    held against float64 on the same inputs (kernel at most 3x the plain
-    version's error + 1e-6 of max), then timed.  Returns {name: (timing row,
-    max |kernel - plain|, tensor-core bounds)}: the bounds in ms of the
-    kernels' split and of 3xTF32 throughout, on the dense TF32 rate."""
-    G = D_ECOG * (D_ECOG - 1) // 2
-    N = B_ECOG
+def backward_kernels(ck, gen, dev, M=M_ECOG, G=None, N=None):
+    """The quadform's two backward kernels at a training shape (A (M, N),
+    lower-triangular W (G, M, M), random vbar; by default ECoG's G = 3003
+    and N = 512), each f32 result held against float64 on the same inputs
+    (kernel at most 3x the plain version's error + 1e-6 of max), then
+    timed.  Returns {name: (timing row, max |kernel - plain|, tensor-core
+    bounds)}: the bounds in ms of the kernels' split and of 3xTF32
+    throughout, on the dense TF32 rate."""
+    G = D_ECOG * (D_ECOG - 1) // 2 if G is None else G
+    N = B_ECOG if N is None else N
     shape = f"({G},{M},{M})x({M},{N})"
     A = torch.randn(M, N, device=dev, generator=gen)
     W = 0.1 * torch.randn(G, M, M, device=dev, generator=gen).tril()
@@ -778,7 +788,7 @@ def _worst(ratios, fields):
 
 
 def chol_inv_witness(ck, tc, dev, smi):
-    """ROADMAP Queue 3 item 9's study.  Witness (a) is the ECoG gradient
+    """The study of chol_inv's factor rounding.  Witness (a) is the ECoG gradient
     gate (`ecog_gradients`: lengthscales 40, three row orders, tolerance 3x
     the worst plain error + 1e-5 of max), witness (b) the card test's small
     model (D=3, M=12, B=40, tolerance 3x the plain error + 1e-5 of max).
@@ -875,8 +885,10 @@ def illustration_fit(ck, td, tp, sim):
     fit_s = time.perf_counter() - t0
     losses = np.asarray(res.loss_list)
     first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
-    check(bool(np.all(np.isfinite(losses))) and last < 0.5 * first,
-          f"illustration fit {fit_s:.2f} s, launches {dict(ck.LAUNCHES)}: mean loss of the first "
+    replayed = sum(ck.REPLAYED.values())
+    check(bool(np.all(np.isfinite(losses))) and last < 0.5 * first and replayed > 0,
+          f"illustration fit {fit_s:.2f} s through the graphs of make_scan_epochs ({replayed} "
+          f"replayed launches), launches {dict(ck.LAUNCHES)}: mean loss of the first "
           f"10 epochs {first:.4f}, of the last 10 {last:.4f} (must halve)")
     check(res.elbo_trace[-1] > res.elbo_trace[0], f"illustration ELBO rises: {res.elbo_trace}")
     p = res.params
@@ -942,6 +954,162 @@ def ecog_data(dev, M):
             torch.as_tensor(flat.y, dtype=torch.float32, device=dev),
             torch.as_tensor(flat.idx, dtype=torch.int64, device=dev),
             torch.linspace(0.0, 800.0, M, device=dev))
+
+
+# The fused trainer's phase: graph against eager at ECoG width, the rates
+# of the three training shapes, and `inference()` on the graph.
+SCAN_PARITY_EPOCHS = 2
+SCAN_SHAPES = (("ECoG D=78 M=100 B=512", D_ECOG, M_ECOG, B_ECOG, 1),
+               ("ECoG D=78 M=200 B=512", D_ECOG, M_ECOG200, B_ECOG, 1),
+               ("PM2.5-sub D=6 M=100 B=2000", D_PM, M_PM, B_PM, 4))
+
+
+def scan_trainer(td, tc, data, D, B, dtype=torch.float32, seed=0):
+    """A fresh `make_scan_epochs` trainer as `inference()` builds it (Adam,
+    lr 0.005, the length scales frozen) over `init_params` with `seed`, on
+    the flat data (x, y, idx, Z) cast to `dtype`.  Returns (run, params,
+    mask, (Z, x, y, idx), batches an epoch)."""
+    x, y, idx, Z = data
+    x, y, Z = (t.to(dtype) for t in (x, y, Z))
+    dev, n = x.device, x.shape[0]
+    params = tc.init_params(torch.Generator(device=dev).manual_seed(seed), D, Z.shape[0],
+                            dtype=dtype, device=dev)
+    params = tc.CNMGPParams(*(t.requires_grad_(True) for t in params))
+    nb = -(-n // B)
+    run = td.make_scan_epochs(td.make_optimizer(params, "adam", 0.005), float(n), JITTER, nb, B)
+    return run, params, td.freeze_mask(params, True), (Z, x, y, idx), nb
+
+
+def scan_parity(ck, td, tc, data, D, B, dtype, tol, smi):
+    """SCAN_PARITY_EPOCHS graphed epochs against as many epochs of the eager
+    body, from the same parameters, optimizer state and generator state:
+    the losses and every parameter within `tol` relative (the same kernels
+    in the same order: equality expected).  Returns (the kernel launches a
+    step replay makes, the launches counted, batches an epoch)."""
+    run, p_g, mask, (Z, x, y, idx), nb = scan_trainer(td, tc, data, D, B, dtype)
+    run_e, p_e, _, _, _ = scan_trainer(td, tc, data, D, B, dtype)
+    dev, M, E = x.device, Z.shape[0], SCAN_PARITY_EPOCHS
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    lg = run(p_g, mask, Z, x, y, idx, torch.Generator(device=dev).manual_seed(1), E)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = dict(ck.LAUNCHES)
+    (graphs,) = run.graphs.values()
+    capture_s, step_launches = graphs.capture_s, graphs.step_launches
+    del graphs, run  # the graphs hold the model and its optimizer state
+    draws = td.EpochDraws(torch.Generator(device=dev).manual_seed(1), M, B, D, dtype)
+    le = torch.cat([td._eager_epoch(run_e.step, p_e, mask, Z, x, y, idx, draws, nb, B)
+                    for _ in range(E)])
+    torch.cuda.synchronize()
+    gap_l = float(((lg.double() - le.double()).abs() / le.double().abs()).max())
+    gap_p = max(rel_to_max(a.detach(), b.detach())[1] for a, b in zip(p_g, p_e))
+    check(bool(torch.isfinite(lg).all()) and max(gap_l, gap_p) <= tol,
+          f"scan_epochs {dtype} D={D} M={M} B={B}: {E} graphed epochs ({E * nb} steps, "
+          f"{wall:.2f} s with the capture's {capture_s:.2f} s) against the eager body: "
+          f"largest relative gap losses {gap_l:.3e}, parameters {gap_p:.3e} (of max), tol {tol:g} "
+          f"({smi})")
+    return step_launches, launched, nb
+
+
+def scan_rates(ck, td, tc, name, data, D, B, per_turn, smi):
+    """Steps/s of the graphed epochs against the eager `make_train_step`
+    epoch body on the same trainer, in turns graph, eager, eager, graph, of
+    `per_turn` epochs each, with the kernels; the capture's seconds, the
+    graph pools' memory and the peak; the device busy share of a replayed
+    epoch (its CUDA-event device time, the host's enqueue hidden, over the
+    host wall of a graphed epoch).  Returns the launches."""
+    run, params, mask, (Z, x, y, idx), nb = scan_trainer(td, tc, data, D, B)
+    dev, M = x.device, Z.shape[0]
+    draws = td.EpochDraws(torch.Generator(device=dev).manual_seed(2), M, B, D, torch.float32)
+    ck.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    run(params, mask, Z, x, y, idx, draws, 1)  # the capture, then one epoch
+    torch.cuda.synchronize()
+    (graphs,) = run.graphs.values()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    turns = {
+        "graph": lambda: run(params, mask, Z, x, y, idx, draws, per_turn),
+        "eager": lambda: torch.cat([td._eager_epoch(run.step, params, mask, Z, x, y, idx, draws,
+                                                    nb, B) for _ in range(per_turn)]),
+    }
+    rates = {}
+    for route in ("graph", "eager", "eager", "graph"):
+        t0 = time.perf_counter()
+        losses = turns[route]()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(bool(torch.isfinite(losses).all()), f"scan rates {name} ({route}): finite losses")
+        rates.setdefault(route, []).append(per_turn * nb / wall)
+    epoch_ms = device_ms(lambda: run(params, mask, Z, x, y, idx, draws, 1), reps=1)
+    wall_ms = 1e3 * nb / max(rates["graph"])
+    launched = dict(ck.LAUNCHES)
+    g, e = rates["graph"], rates["eager"]
+    print(f"scan {name}: graph {g[0]:.2f} / {g[1]:.2f} steps/s, eager make_train_step "
+          f"{e[0]:.2f} / {e[1]:.2f} steps/s ({per_turn * nb} steps a turn, turns graph, eager, "
+          f"eager, graph); a replayed epoch {epoch_ms:.2f} ms on the device "
+          f"({epoch_ms / nb:.3f} ms a step), busy {epoch_ms / wall_ms:.1%} of its host wall; "
+          f"capture {graphs.capture_s:.2f} s, graph pools {graphs.pool_bytes / 2**30:.3f} GiB, "
+          f"peak {peak:.2f} GiB; {sum(graphs.step_launches.values())} port kernels a step "
+          f"({smi})")
+    return launched
+
+
+def scan_epochs_phase(ck, td, tc, dev, smi):
+    """The fused trainer on the card: (a) graph against eager at ECoG width
+    in float32 with the kernels (all five in the step graph, each launch
+    counted at every replay) and in float64 through the plain versions;
+    (b) steps/s of the graph against the eager step at the three training
+    shapes; (c) `inference()`'s fast path on the graph at ECoG width, a
+    rollback of epoch 1 forced once at factor 1 giving the unguarded
+    losses bit for bit.  Returns the launches of the phase."""
+    launched = {k: 0 for k in ck.KERNELS}
+
+    def add(counts):
+        for k in ck.KERNELS:
+            launched[k] += counts[k]
+
+    ecog = ecog_data(dev, M_ECOG)
+    step_launches, counts, nb = scan_parity(ck, td, tc, ecog, D_ECOG, B_ECOG, torch.float32,
+                                            1e-5, smi)
+    add(counts)
+    per_epoch = {k: n * nb for k, n in step_launches.items()}
+    check(all(step_launches[k] > 0 for k in TRAIN_KERNELS)
+          and all(counts[k] >= SCAN_PARITY_EPOCHS * per_epoch[k] for k in ck.KERNELS),
+          f"scan_epochs: the step graph holds all five DSVI kernels; launches a replayed ECoG "
+          f"epoch ({nb} step replays, the capture's count a step times {nb}): {per_epoch}")
+    step64, counts64, _ = scan_parity(ck, td, tc, ecog, D_ECOG, B_ECOG, torch.float64, 1e-12, smi)
+    check(sum(counts64.values()) == 0 and sum(step64.values()) == 0,
+          f"scan_epochs float64: the plain versions, no kernel launched ({counts64})")
+
+    for name, D, M, B, per_turn in SCAN_SHAPES:
+        data = ecog_data(dev, M) if D == D_ECOG else pm25_data(dev)
+        add(scan_rates(ck, td, tc, name, data, D, B, per_turn, smi))
+
+    X_list, Y_list = ecog_lists()
+    kw = dict(batch_size=B_ECOG, dim_outputs=D_ECOG, lr=0.005, itnum=2, seed=0, show_ELBO=False)
+    real, seen = td._diverged, []
+
+    def diverged_at_epoch_1_once(losses, n_before):
+        seen.append(n_before)
+        return len(seen) == 2 or real(losses, n_before)
+
+    Zn = np.linspace(0.0, 800.0, M_ECOG)
+    ck.reset_launches()
+    with mock.patch.object(td, "_diverged", diverged_at_epoch_1_once):
+        guarded = td.inference(X_list, Y_list, Zn, divergence_rollback=True,
+                               rollback_lr_factor=1.0, **kw)
+    replayed = sum(ck.REPLAYED.values())
+    add(ck.LAUNCHES)
+    ck.reset_launches()
+    base = td.inference(X_list, Y_list, Zn, **kw)
+    add(ck.LAUNCHES)
+    check(guarded.rollbacks == 1 and seen == [0, nb, nb] and replayed > 0
+          and guarded.loss_list == base.loss_list,
+          f"scan_epochs inference() at ECoG width on the graph ({replayed} replayed launches): a "
+          f"rollback of epoch 1 forced once at factor 1 gives the unguarded run's "
+          f"{len(base.loss_list)} losses bit for bit")
+    return launched
 
 
 def ecog_m200(ck, td, tc, dev, smi):
@@ -1044,8 +1212,10 @@ def dsvi_options(ck, td, sim, dev, smi, ckpt, optimizers):
         fresh, _, _ = run(X_list, Y_list, Z, PATH=path, save_model=True, **ecog)
         save_s, size = ckpt.LAST_IO_SECONDS["save"], os.path.getsize(path)
         resumed, _, _ = run(X_list, Y_list, Z, PATH=path, continuous_training=True, **ecog)
-        check(resumed.loss_list[0] < 0.7 * fresh.loss_list[0],
-              f"dsvi_options (c) ECoG checkpoint: {size} bytes, save {save_s:.3f} s, load "
+        replayed = sum(ck.REPLAYED.values())
+        check(resumed.loss_list[0] < 0.7 * fresh.loss_list[0] and replayed > 0,
+              f"dsvi_options (c) ECoG checkpoint, resumed on the graphs of make_scan_epochs "
+              f"({replayed} replayed launches): {size} bytes, save {save_s:.3f} s, load "
               f"{ckpt.LAST_IO_SECONDS['load']:.3f} s; resumed first loss "
               f"{resumed.loss_list[0]:.4e} < 0.7x the fresh first {fresh.loss_list[0]:.4e} ({smi})")
         try:
@@ -1942,6 +2112,9 @@ def main() -> int:
     gibbs_err, gibbs_rows = gibbs_shapes(ck, torch.Generator(device=dev).manual_seed(8), dev)
     rbf_err, rbf_rows = rbf_shapes(ck, torch.Generator(device=dev).manual_seed(10), dev)
     backward200 = backward_kernels(ck, gen, dev, M_ECOG200)
+    # PM2.5-sub's offdiagonal groups, where 6b has lost to its einsums
+    backward_pm = backward_kernels(ck, torch.Generator(device=dev).manual_seed(12), dev, M_PM,
+                                   G=D_PM * (D_PM - 1) // 2, N=B_PM)
 
     # ----------------------------------------- serving at full ECoG width
     params = cnmgp.init_params(torch.Generator(device=dev).manual_seed(0), D_ECOG, M_ECOG,
@@ -2080,6 +2253,9 @@ def main() -> int:
     # ------------------------------------------------------------- training
     trained = training(ck, dsvi, cnmgp, predict, sim, dev, gen, smi)
     print(f"launches in one ECoG training epoch: {trained}")
+    t0 = time.perf_counter()
+    scanned = scan_epochs_phase(ck, dsvi, cnmgp, dev, smi)
+    print(f"scan_epochs phase {time.perf_counter() - t0:.1f} s; launches {scanned}")
     trained200 = ecog_m200(ck, dsvi, cnmgp, dev, smi)
     witness = chol_inv_witness(ck, cnmgp, dev, smi)
     print(f"launches in one ECoG M=200 training epoch: {trained200}")
@@ -2087,7 +2263,7 @@ def main() -> int:
     options = dsvi_options(ck, dsvi, sim, dev, smi, checkpoint, optimizers)
     print(f"dsvi_options phase {time.perf_counter() - t0:.1f} s; launches {options}")
     for k in ck.KERNELS:
-        launches[k] += trained[k] + trained200[k] + options[k]
+        launches[k] += trained[k] + scanned[k] + trained200[k] + options[k]
 
     # ------------------------------------------------------ fully Bayesian
     t0 = time.perf_counter()
@@ -2131,12 +2307,17 @@ def main() -> int:
         ("quadform_diag", f"{tpu}:578", max(qf_err, qf64_err)),
     ]
     for n, line in (("quadform_diag_dw", 648), ("quadform_diag_da", 667)):
-        rows.append((n, f"{tpu}:{line}", max(backward[n][1], backward200[n][1])))
+        rows.append((n, f"{tpu}:{line}",
+                     max(backward[n][1], backward200[n][1], backward_pm[n][1])))
         times[n] = backward[n][0]
         tc_bounds[n] = backward[n][2]
         k_ms, p_ms, l_ms, (b_ms, b_by) = backward200[n][0]
         more[n] = [{"at": f"M={M_ECOG200}", "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                     "bound_ms": b_ms, "bound_by": b_by, **backward200[n][2]}]
+        k_ms, p_ms, l_ms, (b_ms, b_by) = backward_pm[n][0]
+        more[n].append({"at": f"PM2.5-sub G={D_PM * (D_PM - 1) // 2} M={M_PM} N={B_PM}",
+                        "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, **backward_pm[n][2]})
     kernels = []
     for n, r, e in rows:
         k_ms, p_ms, l_ms, (b_ms, b_by) = times[n]
@@ -2156,6 +2337,33 @@ def main() -> int:
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
     return 0
+
+
+def scan_main() -> int:
+    """The scan_epochs phase alone (with the kernels' build):
+    python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.scan_main())'"""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer import dsvi
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import cnmgp
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    ck.build(TRAIN_KERNELS)
+    t0 = time.perf_counter()
+    launched = scan_epochs_phase(ck, dsvi, cnmgp, torch.device("cuda"), smi)
+    print(f"scan_epochs phase {time.perf_counter() - t0:.1f} s; launches {launched}")
+    for f in FAILURES:
+        print("FAILED: " + f)
+    return 1 if FAILURES else 0
 
 
 def witness_main() -> int:

@@ -209,16 +209,22 @@ def _zero_adam(like):
     return AdamState(z, z, z)
 
 
-def init_carry(log_prob_fn, init_positions, init_step_size, init_traj_length) -> CheesCarry:
+def init_carry(log_prob_fn, init_positions, init_step_size, init_traj_length,
+               dtype=None) -> CheesCarry:
     """The initial carry (log-probs and gradients evaluated once at the
-    start points)."""
+    start points).  The step size, the trajectory length, the Adam state,
+    the mass matrix and the window sums are in `dtype` (the JAX call form,
+    `init_carry(..., init_traj_length, dtype)`), by default the positions'
+    dtype; the state keeps the positions' own."""
     q = init_positions
     lp0, g0 = value_and_grad(log_prob_fn, q)
-    scalar = lambda v: torch.as_tensor(v, dtype=q.dtype, device=q.device)  # noqa: E731
-    zeros_d = q.new_zeros(q.shape[1])
+    dtype = q.dtype if dtype is None else dtype
+    scalar = lambda v: torch.as_tensor(v, dtype=dtype, device=q.device)  # noqa: E731
+    zeros_d = torch.zeros(q.shape[1], dtype=dtype, device=q.device)
     return CheesCarry(CheesState(q.detach(), lp0, g0), da_init(scalar(init_step_size)),
                       _zero_adam(scalar(0.0)), torch.log(scalar(init_traj_length)),
-                      q.new_ones(q.shape[1]), zeros_d, zeros_d, scalar(0.0))
+                      torch.ones(q.shape[1], dtype=dtype, device=q.device), zeros_d, zeros_d,
+                      scalar(0.0))
 
 
 def finish_mass(carry: CheesCarry, mass_adapt: bool) -> CheesCarry:

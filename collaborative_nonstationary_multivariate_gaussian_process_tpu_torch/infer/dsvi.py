@@ -16,10 +16,15 @@ nmgp_dsvi.py:758-909):
     `utils.checkpoint`, in the JAX package's file format;
   - the divergence rollback and the chunked test trace of the JAX fast path.
 
-The JAX package runs epochs inside one `lax.scan` per dispatch window; that
-was a workaround for a limit of its TPU worker.  Here a step is a plain
-Python loop over batches, and losses stay on the device until an epoch ends
-(or a probe needs them): the host does not wait for the card on every step.
+The JAX package's fused trainer, `make_scan_epochs`, runs many epochs in
+one `lax.scan` with the shuffle on the device; its `inference()` takes it on
+the fast path (no `verbose`, no stop criterion, no per-step test RMSE).
+Here `make_scan_epochs` runs each epoch on a CUDA card as replays of two
+CUDA graphs, the shuffle's and the step's (`_EpochGraphs`), so the host
+launches one graph a step instead of its ~1,000 kernels; on the CPU the
+same epoch runs op by op.  `inference()` takes it where the JAX package
+does, one epoch a call, and the other paths keep `make_train_step`.  Losses
+stay on the device until an epoch ends: the host reads them once an epoch.
 The epoch is therefore the port's chunk, where the JAX package's is as many
 epochs as fit its dispatch budget: the rollback guard checks each epoch and
 the chunked test trace has one entry per epoch.
@@ -37,6 +42,7 @@ import torch
 from ..config import DEFAULT_DTYPE, DSVI_JITTER, resolve_device
 from ..models import cnmgp
 from ..models.cnmgp import CNMGPParams
+from ..ops import cuda_kernels
 from ..utils import checkpoint as ckpt
 from ..utils.data import flatten_output_lists
 from . import optimizers
@@ -50,6 +56,8 @@ __all__ = [
     "make_optimizer",
     "exponential_decay",
     "make_train_step",
+    "EpochDraws",
+    "make_scan_epochs",
     "inference",
 ]
 
@@ -107,19 +115,59 @@ def freeze_mask(params: CNMGPParams, fix_hyperpars: bool) -> CNMGPParams:
 
 def make_optimizer(params: CNMGPParams, name: str = "adam", lr: float = 0.01):
     """"adam" (`torch.optim.Adam`, the formula of `optax.adam`, eps 1e-8) or
-    "adam_bf16" (`AdamBf16Moments`) over the parameter tensors."""
+    "adam_bf16" (`AdamBf16Moments`) over the parameter tensors.  For CUDA
+    parameters the rate is a 0-d tensor on their device and Adam is
+    capturable (its count on the device too), so that a CUDA graph of the
+    step reads both anew at every replay; CPU parameters keep a float rate."""
+    params = list(params)
+    p0 = params[0]
+    rate = torch.tensor(float(lr), dtype=p0.dtype, device=p0.device) if p0.is_cuda else float(lr)
     if name == "adam":
-        return torch.optim.Adam(list(params), lr=lr, eps=1e-8)
+        return torch.optim.Adam(params, lr=rate, eps=1e-8, capturable=p0.is_cuda)
     if name == "adam_bf16":
-        return AdamBf16Moments(list(params), lr=lr)
+        return AdamBf16Moments(params, lr=rate)
     raise ValueError(f"unknown optimizer {name!r}")
 
 
 def exponential_decay(lr: float, decay_rate: float, transition_steps: int):
     """Step -> rate, lr * decay_rate ** (step / transition_steps): optax's
     `exponential_decay` with its default staircase=False, so the rate falls
-    a little every step."""
+    a little every step.  The step may be a number or a tensor (the count
+    of `make_train_step`, on the device)."""
     return lambda t: lr * decay_rate ** (t / transition_steps)
+
+
+class _TrainStep:
+    """The step of `make_train_step`; `count` is the step count, int32 on
+    the parameters' device, as optax's count."""
+
+    def __init__(self, optimizer, n_total, jitter, kl_mode, grad_clip_norm, lr, start):
+        self.optimizer, self.n_total, self.jitter, self.kl_mode = optimizer, n_total, jitter, kl_mode
+        self.grad_clip_norm, self.lr = grad_clip_norm, lr
+        p0 = optimizer.param_groups[0]["params"][0]
+        self.count = torch.tensor(int(start), dtype=torch.int32, device=p0.device)
+
+    def __call__(self, params: CNMGPParams, grad_mask: CNMGPParams, Z, bx, by, bidx, bw, noise):
+        opt = self.optimizer
+        opt.zero_grad(set_to_none=True)
+        loss = cnmgp.negative_selbo(params, Z, bx, by, bidx, bw, self.n_total, noise, self.jitter,
+                                    self.kl_mode)
+        loss.backward()
+        grads = []
+        for p, m in zip(params, grad_mask):
+            p.grad = torch.where(torch.isfinite(p.grad), p.grad, 0.0) * m
+            grads.append(p.grad)
+        if self.grad_clip_norm is not None:
+            clip = self.grad_clip_norm
+            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            keep = g_norm < clip
+            for g in grads:
+                g.copy_(torch.where(keep, g, g / g_norm * clip))
+        if self.lr is not None:
+            optimizers.set_rate(opt, self.lr(self.count))
+        opt.step()
+        self.count.add_(1)
+        return loss.detach()
 
 
 def make_train_step(
@@ -128,7 +176,7 @@ def make_train_step(
     jitter: float = DSVI_JITTER,
     kl_mode: str = "true",
     grad_clip_norm: Optional[float] = None,
-    lr: Optional[Callable[[int], float]] = None,
+    lr: Optional[Callable] = None,
     start: int = 0,
 ):
     """One DSVI step, (params, grad_mask, Z, bx, by, bidx, bw, noise) ->
@@ -138,34 +186,242 @@ def make_train_step(
     mask, then, when `grad_clip_norm` is given, optax's global-norm clip,
     then the Adam update.  `lr`, when given, is the rate of each step from
     the step count (`start` for the first step: 0, or the count of a
-    resumed checkpoint), as an optax schedule is read."""
-    count = start
-
-    def step(params: CNMGPParams, grad_mask: CNMGPParams, Z, bx, by, bidx, bw, noise):
-        nonlocal count
-        optimizer.zero_grad(set_to_none=True)
-        loss = cnmgp.negative_selbo(params, Z, bx, by, bidx, bw, n_total, noise, jitter, kl_mode)
-        loss.backward()
-        grads = []
-        for p, m in zip(params, grad_mask):
-            p.grad = torch.where(torch.isfinite(p.grad), p.grad, 0.0) * m
-            grads.append(p.grad)
-        if grad_clip_norm is not None:
-            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-            keep = g_norm < grad_clip_norm
-            for g in grads:
-                g.copy_(torch.where(keep, g, g / g_norm * grad_clip_norm))
-        if lr is not None:
-            rate = float(lr(count))
-            for group in optimizer.param_groups:
-                group["lr"] = rate
-        optimizer.step()
-        count += 1
-        return loss.detach()
-
-    return step
+    resumed checkpoint), as an optax schedule is read: it is called with
+    the count as an int32 0-d tensor on the parameters' device (optax's
+    count; `exponential_decay` of it computes in float32, as optax's does)
+    and written into the optimizer's rate without a host read, so under a
+    CUDA graph it must compute with tensor operations."""
+    return _TrainStep(optimizer, n_total, jitter, kl_mode, grad_clip_norm, lr, start)
 
 
+class EpochDraws:
+    """The randomness of DSVI epochs from one `torch.Generator`, in the
+    order an epoch takes it: the shuffle's sort keys (`sort_keys(n)`, n
+    int64 keys in [0, 2^32), JAX's random 32-bit keys; not drawn at one
+    batch an epoch), then each step's noise (`noise()`, a `CNMGPNoise` of
+    one draw).  A test passes an object with the same two methods that
+    gives the JAX package's draws instead; under a CUDA graph the object
+    must also carry the `generator` its draws come from."""
+
+    def __init__(self, generator: torch.Generator, num_inducing: int, batch_size: int,
+                 dim_outputs: int, dtype=DEFAULT_DTYPE):
+        self.generator = generator
+        self.shape = (num_inducing, batch_size, dim_outputs)
+        self.dtype = dtype
+
+    def sort_keys(self, n: int) -> torch.Tensor:
+        return torch.randint(0, 2**32, (n,), generator=self.generator, dtype=torch.int64,
+                             device=self.generator.device)
+
+    def noise(self) -> cnmgp.CNMGPNoise:
+        return cnmgp.draw_train_noise(self.generator, 1, *self.shape, dtype=self.dtype)
+
+
+def _epoch_arrays(x, y, idx, keys, num_batches: int, batch_size: int):
+    """An epoch's batches, (num_batches, batch_size, ...) each, and their
+    0/1 weights (JAX `epoch_body`, dsvi.py:159-175): at one batch the data
+    as it is, else the rows in the order of a stable sort of `keys` (a
+    uniform permutation), zero-padded to num_batches * batch_size rows of
+    weight 0."""
+    n = x.shape[0]
+    if num_batches == 1:
+        return x[None], y[None], idx[None], torch.ones((1, n), dtype=x.dtype, device=x.device)
+    order = torch.sort(keys, stable=True).indices
+    pad = num_batches * batch_size - n
+
+    def padded(a):
+        a = torch.cat([a[order], a.new_zeros((pad,) + a.shape[1:])])
+        return a.reshape((num_batches, batch_size) + a.shape[1:])
+
+    w = torch.cat([x.new_ones(n), x.new_zeros(pad)]).reshape(num_batches, batch_size)
+    return padded(x), padded(y), padded(idx), w
+
+
+def _eager_epoch(step, params, grad_mask, Z, x, y, idx, draws, num_batches: int,
+                 batch_size: int, after_step: Optional[Callable[[], None]] = None):
+    """One epoch, op by op: the body of `make_scan_epochs` on the CPU, and
+    the loop of `inference()`'s other paths (`after_step`, if given, is
+    called after each step).  Returns the (num_batches,) losses."""
+    keys = draws.sort_keys(x.shape[0]) if num_batches > 1 else None
+    ex, ey, ei, ew = _epoch_arrays(x, y, idx, keys, num_batches, batch_size)
+    losses = []
+    for b in range(num_batches):
+        losses.append(step(params, grad_mask, Z, ex[b], ey[b], ei[b], ew[b], draws.noise()))
+        if after_step is not None:
+            after_step()
+    return torch.stack(losses)
+
+
+# Steps run before a capture (the PyTorch whole-network-capture recipe),
+# on a side stream, their effects then undone.
+_WARMUP_STEPS = 3
+
+
+def _capture(graph: torch.cuda.CUDAGraph, body: Callable[[], None]) -> None:
+    """Capture `body` into `graph`."""
+    with torch.cuda.graph(graph):
+        body()
+
+
+class _EpochGraphs:
+    """The two CUDA graphs of one run's tensors: the shuffle (the sort keys
+    drawn, the rows sorted into the static epoch buffers, the cursor reset)
+    and the step (batch `cursor` gathered from those buffers, the noise
+    drawn, forward, backward and the optimizer, the loss written at
+    `cursor`, the cursor incremented).  Both draw from the run's generator,
+    which is registered with each, so every replay draws anew.
+
+    Captured after `_WARMUP_STEPS` steps on a side stream (which load the
+    libraries and create the optimizer's state), whose effects on the
+    parameters, the optimizer, the step count and the generator are then
+    restored in place.  `step_launches` are the kernel launches a step
+    replay makes, `capture_s` the seconds of warmup and capture, and
+    `pool_bytes` the memory the two graphs' pools reserved.  The object
+    keeps every tensor the graphs address alive as long as it lives."""
+
+    def __init__(self, step: _TrainStep, params, grad_mask, Z, x, y, idx, draws, num_batches: int,
+                 batch_size: int):
+        t0 = time.perf_counter()
+        gen, dev = draws.generator, x.device
+        n = x.shape[0]
+        bufs = _epoch_arrays(x, y, idx, x.new_zeros(n, dtype=torch.int64), num_batches,
+                             batch_size)
+        ex, ey, ei, ew = (b.clone() for b in bufs)
+        cursor = torch.zeros((), dtype=torch.int64, device=dev)
+        losses = torch.zeros(num_batches, dtype=params[0].dtype, device=dev)
+        self.losses, self.num_batches = losses, num_batches
+
+        def shuffle():
+            keys = draws.sort_keys(n) if num_batches > 1 else None
+            for buf, a in zip((ex, ey, ei, ew), _epoch_arrays(x, y, idx, keys, num_batches,
+                                                              batch_size)):
+                buf.copy_(a)
+            cursor.zero_()
+
+        def one_step():
+            at = cursor.view(1)
+            bx, by, bi, bw = (a.index_select(0, at)[0] for a in (ex, ey, ei, ew))
+            loss = step(params, grad_mask, Z, bx, by, bi, bw, draws.noise())
+            losses.index_copy_(0, at, loss.view(1))
+            cursor.add_(1)
+
+        opt = step.optimizer
+        snap = _snapshot(params, opt, gen, step)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            shuffle()
+            for _ in range(_WARMUP_STEPS):
+                cursor.zero_()
+                one_step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        _restore(snap, params, opt, gen, step)
+
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        self.shuffle_graph, self.step_graph = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        cuda_kernels.take_captured()
+        for graph, body in ((self.shuffle_graph, shuffle), (self.step_graph, one_step)):
+            graph.register_generator_state(gen)
+            _capture(graph, body)
+        self.step_launches = cuda_kernels.take_captured()
+        # the graphs read and write these tensors by address: the two bodies
+        # keep them (the epoch buffers, the cursor, the inputs) alive, and
+        # refer to no attribute of this object, so it is freed, with the
+        # graphs' memory, as soon as its owner drops it
+        self._bodies = (shuffle, one_step)
+        torch.cuda.synchronize(dev)
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.capture_s = time.perf_counter() - t0
+
+    def epoch(self, out: torch.Tensor) -> None:
+        """Replay one epoch: the shuffle, then each step; the losses go to `out`."""
+        self.shuffle_graph.replay()
+        for _ in range(self.num_batches):
+            self.step_graph.replay()
+            cuda_kernels.count_replay(self.step_launches)
+        out.copy_(self.losses)
+
+
+class _ScanEpochs:
+    """The `run` of `make_scan_epochs`; `graphs` holds its captured
+    `_EpochGraphs`, one per set of input tensors."""
+
+    def __init__(self, step: _TrainStep, num_batches: int, batch_size: int):
+        self.step, self.num_batches, self.batch_size = step, num_batches, batch_size
+        self.graphs: Dict[tuple, _EpochGraphs] = {}
+
+    def __call__(self, params, grad_mask, Z, x, y, idx, draws, n_epochs: int) -> torch.Tensor:
+        params, grad_mask = CNMGPParams(*params), CNMGPParams(*grad_mask)
+        if isinstance(draws, torch.Generator):
+            draws = EpochDraws(draws, Z.shape[0], self.batch_size, params.num_outputs, x.dtype)
+        nb = self.num_batches
+        if not x.is_cuda:
+            return torch.cat([
+                _eager_epoch(self.step, params, grad_mask, Z, x, y, idx, draws, nb,
+                             self.batch_size)
+                for _ in range(n_epochs)])
+        gen = getattr(draws, "generator", None)
+        if not isinstance(gen, torch.Generator):
+            raise TypeError("make_scan_epochs on CUDA tensors draws from a torch.Generator: pass "
+                            "one, or a draws object with its `generator`")
+        inputs = (*params, *grad_mask, Z, x, y, idx)
+        key = (tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in inputs), str(x.device),
+               id(gen))
+        if key not in self.graphs:
+            self.graphs[key] = _EpochGraphs(self.step, params, grad_mask, Z, x, y, idx, draws, nb,
+                                            self.batch_size)
+        graphs = self.graphs[key]
+        out = torch.empty(n_epochs * nb, dtype=graphs.losses.dtype, device=x.device)
+        for e in range(n_epochs):
+            graphs.epoch(out[e * nb:(e + 1) * nb])
+        return out
+
+
+def make_scan_epochs(
+    optimizer: torch.optim.Optimizer,
+    n_total: float,
+    jitter: float,
+    num_batches: int,
+    batch_size: int,
+    mesh=None,
+    kl_mode: str = "true",
+    grad_clip_norm: Optional[float] = None,
+    lr: Optional[Callable] = None,
+    start: int = 0,
+):
+    """The fused multi-epoch trainer (JAX `make_scan_epochs`,
+    dsvi.py:113-227): returns run(params, grad_mask, Z, x, y, idx, draws,
+    n_epochs), which trains `n_epochs` epochs and returns their
+    (n_epochs * num_batches,) losses as a tensor on the device.
+
+    Each epoch is JAX's `epoch_body`: at one batch the whole data,
+    unshuffled, with weight 1; else the rows shuffled by one stable sort on
+    random 32-bit keys and zero-padded to num_batches * batch_size rows of
+    weight 0; then the step of `make_train_step` on each batch in turn.
+    The parameters and `optimizer`'s state are updated in place: that is
+    the port's counterpart of the (params, opt_state) JAX returns.  optax's
+    chained clip and schedule are `grad_clip_norm` and `lr` (with the
+    count `start`), as `make_train_step` takes them.  `draws` is a
+    `torch.Generator` (`EpochDraws` of it) or a draws object with the
+    methods of `EpochDraws`.
+
+    On CUDA tensors an epoch is one replay of a CUDA graph of the shuffle,
+    then `num_batches` replays of a CUDA graph of the step (`_EpochGraphs`;
+    a graph of a whole epoch would hold num_batches times a step's ~1,000
+    kernels, captured anew for every shape).  The graphs are captured at
+    the first call on a set of input tensors and kept, keyed by their
+    addresses, shapes and dtypes, the device and the generator; the
+    optimizer, `kl_mode`, the clip and the schedule are the factory's.  A
+    capture that fails raises.  On CPU tensors the same epoch runs op by
+    op.  `mesh` (multi-device) is not ported: it raises
+    NotImplementedError naming ROADMAP.md, Queue 1 item 7."""
+    if mesh is not None:
+        raise NotImplementedError("make_scan_epochs(mesh=...) is not ported yet: ROADMAP.md, "
+                                  "Queue 1 item 7")
+    step = make_train_step(optimizer, n_total, jitter, kl_mode, grad_clip_norm, lr, start)
+    return _ScanEpochs(step, num_batches, batch_size)
 
 
 def _diverged(losses: List[float], n_before: int) -> bool:
@@ -180,26 +436,58 @@ def _diverged(losses: List[float], n_before: int) -> bool:
     return bool(prev.size) and float(np.max(new)) > 10.0 * abs(float(np.min(prev)))
 
 
-def _snapshot(params, opt: torch.optim.Optimizer, gen: torch.Generator):
-    """Copies, on the device, of the parameters and the optimizer's state,
-    and the generator's state."""
-    state = {p: {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in st.items()}
-             for p, st in opt.state.items()}
-    return [p.detach().clone() for p in params], state, gen.get_state()
+def _clone(v):
+    return v.clone() if isinstance(v, torch.Tensor) else v
 
 
-def _roll_back(snap, params, opt: torch.optim.Optimizer, gen: torch.Generator, factor: float):
-    """Restore a `_snapshot` (the parameters in place: the optimizer holds
-    them) and scale every param group's rate by `factor`."""
-    values, state, rng = snap
+def _snapshot(params, opt: torch.optim.Optimizer, gen: torch.Generator, step: _TrainStep):
+    """Copies, on the device, of the parameters, the optimizer's state and
+    rates and the step count, and the generator's state."""
+    state = {p: {k: _clone(v) for k, v in opt.state[p].items()} for p in params if p in opt.state}
+    rates = [_clone(group["lr"]) for group in opt.param_groups]
+    return ([p.detach().clone() for p in params], state, rates, step.count.clone(),
+            gen.get_state())
+
+
+def _restore(snap, params, opt: torch.optim.Optimizer, gen: torch.Generator, step: _TrainStep):
+    """Write a `_snapshot` back in place, into the tensors a CUDA graph of
+    the step captured: the parameters, each optimizer state tensor (zeroed,
+    as a fresh optimizer's, where the snapshot had no state), the rate
+    tensors and the count.  The generator's `set_state` writes its seed and
+    offset into the state object that the graphs registered, so the next
+    replay draws from there (`graphsafe_set_state` would swap that object
+    for another, which the graphs do not see)."""
+    values, state, rates, count, rng = snap
     with torch.no_grad():
         for p, v in zip(params, values):
             p.copy_(v)
-    opt.state.clear()
-    opt.state.update(state)
+        for p in params:
+            saved = state.get(p, {})
+            for k, v in opt.state.get(p, {}).items():
+                if not isinstance(v, torch.Tensor):
+                    opt.state[p][k] = saved.get(k, v)
+                elif k in saved:
+                    v.copy_(saved[k])
+                else:
+                    v.zero_()
+        for group, rate in zip(opt.param_groups, rates):
+            if isinstance(group["lr"], torch.Tensor):
+                group["lr"].copy_(rate)
+            else:
+                group["lr"] = rate
+        step.count.copy_(count)
     gen.set_state(rng)
+
+
+def _roll_back(snap, params, opt: torch.optim.Optimizer, gen: torch.Generator,
+               step: _TrainStep, factor: float):
+    """`_restore` a snapshot and scale every param group's rate by `factor`."""
+    _restore(snap, params, opt, gen, step)
     for group in opt.param_groups:
-        group["lr"] *= factor
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].mul_(factor)
+        else:
+            group["lr"] *= factor
 
 
 def _resume(path: str, params, opt, inject: bool, schedule: bool, hyperpars) -> int:
@@ -228,7 +516,7 @@ def inference(
     sqrt_v=None,
     sqrt_W=None,
     sqrt_U=None,
-    lr: Union[float, Callable[[int], float]] = 0.01,
+    lr: Union[float, Callable] = 0.01,
     itnum: int = 1000,
     do_stop_criterion: bool = False,
     seed: int = 22,
@@ -259,7 +547,8 @@ def inference(
     the reference's, nmgp_dsvi.py:758-761).  Runs on the first CUDA card
     unless `device` names another.
 
-    `lr` is a float or a callable step -> rate; `lr_decay` multiplies the
+    `lr` is a float or a callable step -> rate (given the step count as a
+    0-d tensor on the device, see `make_train_step`); `lr_decay` multiplies the
     rate by lr_decay per epoch, smoothly every step (optax's
     exponential_decay, transition_steps = batches per epoch, staircase
     off).  `batch_size <= 0` or above the data size means full batch.
@@ -294,10 +583,10 @@ def inference(
     as fit its dispatch budget, the port's one epoch: its `rmse_trace` has
     an entry per epoch, the JAX one fewer.  `mesh` (multi-device) is not
     ported: it raises NotImplementedError naming ROADMAP.md, Queue 1 item
-    10.
+    7.
     """
     if mesh is not None:
-        raise NotImplementedError("inference(mesh=...) is not ported yet: ROADMAP.md, Queue 1 item 10")
+        raise NotImplementedError("inference(mesh=...) is not ported yet: ROADMAP.md, Queue 1 item 7")
     if divergence_rollback and (lr_decay is not None or callable(lr)):
         raise ValueError(
             "divergence_rollback scales a constant injected learning rate; "
@@ -340,7 +629,7 @@ def inference(
         start = _resume(PATH, params, opt, **layout,
                         hyperpars=lengthscales if fix_hyperpars else None)
     grad_mask = freeze_mask(params, fix_hyperpars)
-    step = make_train_step(opt, float(n_total), jitter, kl_mode, grad_clip_norm, schedule, start)
+    draws = EpochDraws(gen, M, batch_size, D, dtype)
 
     if X_test_list is not None:
         test = flatten_output_lists(X_test_list, Y_test_list)
@@ -354,9 +643,18 @@ def inference(
             return torch.sqrt(torch.mean((est - yt) ** 2))
 
     # the JAX fast path (dsvi.py:456-460), the only one with the guard and
-    # the chunked trace
+    # the chunked trace: its epochs run through make_scan_epochs, one an
+    # epoch (replays of CUDA graphs on a card), the others through
+    # make_train_step
     fast = (X_test_list is None or chunked_test_trace) and not do_stop_criterion and not verbose
     guard = divergence_rollback and fast
+    train = dict(grad_clip_norm=grad_clip_norm, lr=schedule, start=start)
+    if fast:
+        run_epochs = make_scan_epochs(opt, float(n_total), jitter, num_batches, batch_size,
+                                      kl_mode=kl_mode, **train)
+        step = run_epochs.step
+    else:
+        step = make_train_step(opt, float(n_total), jitter, kl_mode, **train)
     loss_list: List[float] = []
     time_list: List[float] = []
     elbo_trace: List[float] = []
@@ -366,24 +664,14 @@ def inference(
     ts = time.time()
 
     def train_epoch(epoch: int) -> List[float]:
-        if num_batches == 1:
-            batch_idx = torch.arange(n_total, device=device)[None]
-            batch_w = torch.ones((1, n_total), dtype=dtype, device=device)
+        rmses = []
+        if fast:
+            losses = run_epochs(params, grad_mask, Z, x, y, idx, draws, 1)
         else:
-            pad = num_batches * batch_size - n_total
-            perm = torch.randperm(n_total, generator=gen, device=device)
-            batch_idx = torch.cat([perm, perm.new_zeros(pad)]).reshape(num_batches, batch_size)
-            batch_w = torch.cat([torch.ones(n_total, dtype=dtype, device=device),
-                                 torch.zeros(pad, dtype=dtype, device=device)])
-            batch_w = batch_w.reshape(num_batches, batch_size)
-        losses, rmses = [], []
-        for b in range(num_batches):
-            sel = batch_idx[b]
-            noise = cnmgp.draw_train_noise(gen, 1, M, batch_size, D, dtype=dtype)
-            losses.append(step(params, grad_mask, Z, x[sel], y[sel], idx[sel], batch_w[b], noise))
-            if X_test_list is not None and not fast:
-                rmses.append(test_rmse())
-        epoch_losses = torch.stack(losses).tolist()  # the host waits here, once an epoch
+            after = None if X_test_list is None else (lambda: rmses.append(test_rmse()))
+            losses = _eager_epoch(step, params, grad_mask, Z, x, y, idx, draws, num_batches,
+                                  batch_size, after)
+        epoch_losses = losses.tolist()  # the host waits here, once an epoch
         loss_list.extend(epoch_losses)
         time_list.extend([time.time() - ts] * num_batches)
         if rmses:
@@ -398,17 +686,17 @@ def inference(
     for epoch in range(itnum):
         while True:
             if guard:
-                snap = _snapshot(params, opt, gen)
+                snap = _snapshot(params, opt, gen, step)
                 marks = [len(a) for a in (loss_list, time_list, rmse_trace, rmse_test_list)]
             epoch_losses = train_epoch(epoch)
             if not guard or rollbacks >= max_rollbacks or not _diverged(loss_list, marks[0]):
                 break
-            _roll_back(snap, params, opt, gen, rollback_lr_factor)
+            _roll_back(snap, params, opt, gen, step, rollback_lr_factor)
             for a, n in zip((loss_list, time_list, rmse_trace, rmse_test_list), marks):
                 del a[n:]
             rollbacks += 1
             print(f"divergence rollback #{rollbacks}: retrying 1 epoch(s) from epoch {epoch} at "
-                  f"lr={opt.param_groups[0]['lr']:.3g}")
+                  f"lr={float(opt.param_groups[0]['lr']):.3g}")
         if verbose:
             for b, loss in enumerate(epoch_losses):
                 print(f"epoch: {epoch}/{itnum}, batch: {b + 1}/{num_batches}, loss: {loss:.4f}")

@@ -8,6 +8,13 @@ traffic; every arithmetic operation (the moment updates, the bias
 correction, the update) stays in float32, and so do the parameters.  Only
 the storage dtype changes.  The plain "adam" of `inference()` is
 `torch.optim.Adam`, which applies the same formula as `optax.adam`.
+
+Both keep every value a CUDA graph replays on the device: the step count
+and, for CUDA parameters, the learning rate are tensors there, updated in
+place (`torch.optim.Adam(..., capturable=True)` and `AdamBf16Moments`), so
+a captured step reads the count, the rate and the moments anew at every
+replay.  `set_rate` writes a rate into such a tensor, or into the float
+rate of CPU parameters.
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ from typing import List, Sequence
 
 import torch
 
-__all__ = ["AdamBf16Moments", "optax_state", "load_optax_state"]
+__all__ = ["AdamBf16Moments", "set_rate", "optax_state", "load_optax_state"]
 
 # The hyperparameters `optax.inject_hyperparams` keeps in the state of
 # `optax.adam` and of the JAX `adam_bf16_moments`, in its (sorted) order.
@@ -28,7 +35,7 @@ class AdamBf16Moments(torch.optim.Optimizer):
     """`optax.adam` with both moment EMAs stored in bfloat16:
 
       mu = b1 mu + (1 - b1) g,   nu = b2 nu + (1 - b2) g^2     (in f32)
-      p += -lr * (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)
+      p += -lr * mu / ((1 - b1^t) (sqrt(nu / (1 - b2^t)) + eps))
 
     with g, mu and nu upcast to float32 and mu, nu stored back as bf16.
     """
@@ -49,22 +56,48 @@ class AdamBf16Moments(torch.optim.Optimizer):
                     continue
                 state = self.state[p]
                 if not state:
-                    state["count"] = 0
+                    state["count"] = torch.zeros((), dtype=torch.int32, device=p.device)
                     state["mu"] = torch.zeros_like(p, dtype=torch.bfloat16)
                     state["nu"] = torch.zeros_like(p, dtype=torch.bfloat16)
-                state["count"] += 1
-                # the bias corrections in f32, as optax computes them
-                c = torch.tensor(float(state["count"]), dtype=torch.float32)
-                bc1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** c)
-                bc2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** c)
+                state["count"].add_(1)
+                # the bias corrections in f32 from the count on the device,
+                # as optax computes them
+                c = state["count"].to(torch.float32)
+                bc1 = 1.0 - torch.pow(_f32(b1), c)
+                bc2 = 1.0 - torch.pow(_f32(b2), c)
                 g = p.grad.to(torch.float32)
                 mu = b1 * state["mu"].to(torch.float32) + (1.0 - b1) * g
                 nu = b2 * state["nu"].to(torch.float32) + (1.0 - b2) * (g * g)
-                upd = (mu / bc1) / (torch.sqrt(nu / bc2) + group["eps"])
+                # (mu / bc1) / (sqrt(nu / bc2) + eps) as XLA evaluates it: its
+                # simplifier turns (a / b) / c into a / (b c)
+                upd = mu / (bc1 * (_sqrt32(nu / bc2) + group["eps"]))
                 p.add_((-group["lr"] * upd).to(p.dtype))
-                state["mu"] = mu.to(torch.bfloat16)
-                state["nu"] = nu.to(torch.bfloat16)
+                state["mu"].copy_(mu)
+                state["nu"].copy_(nu)
         return loss
+
+
+def _sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root, as optax's: on the CPU
+    through float64, since torch's float32 kernel there rounds ~0.7% of
+    entries the other way; the card's `sqrtf` is IEEE."""
+    return torch.sqrt(x) if x.is_cuda else torch.sqrt(x.double()).to(torch.float32)
+
+
+def _f32(v: float) -> float:
+    """v rounded to float32 (the value optax's f32 arithmetic uses)."""
+    return float(torch.tensor(v, dtype=torch.float32))
+
+
+def set_rate(opt: torch.optim.Optimizer, rate) -> None:
+    """Make `rate` (a float or a 0-d tensor) the learning rate of every
+    param group: written in place into a group's rate tensor (no host
+    read, so a CUDA graph replays it), or as a float."""
+    for group in opt.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].copy_(rate)
+        else:
+            group["lr"] = float(rate)
 
 
 def _moments(opt: torch.optim.Optimizer, p: torch.Tensor):
@@ -74,7 +107,7 @@ def _moments(opt: torch.optim.Optimizer, p: torch.Tensor):
     st = opt.state.get(p) or {}
     if isinstance(opt, AdamBf16Moments):
         zero = torch.zeros_like(p, dtype=torch.bfloat16)
-        return st.get("count", 0), st.get("mu", zero), st.get("nu", zero)
+        return int(st.get("count", 0)), st.get("mu", zero), st.get("nu", zero)
     if not st:
         return 0, torch.zeros_like(p), torch.zeros_like(p)
     return int(st["step"]), st["exp_avg"], st["exp_avg_sq"]
@@ -104,7 +137,7 @@ def optax_state(opt: torch.optim.Optimizer, params: Sequence[torch.Tensor], inje
     if inject:
         group = opt.param_groups[0]
         values = dict(b1=group["betas"][0], b2=group["betas"][1], eps=group["eps"], eps_root=0.0,
-                      learning_rate=group["lr"])
+                      learning_rate=float(group["lr"]))
         leaves += [count] + [torch.tensor(values[k], dtype=params[0].dtype)
                              for k in _INJECTED[_kind(opt)]]
     leaves += [count] + [m[1] for m in moments] + [m[2] for m in moments]
@@ -123,16 +156,20 @@ def load_optax_state(opt: torch.optim.Optimizer, params: Sequence[torch.Tensor],
     if inject:
         names = _INJECTED[_kind(opt)]
         hyper = dict(zip(names, leaves[1:1 + len(names)]))
-        for group in opt.param_groups:
-            group["lr"] = float(hyper["learning_rate"])
+        set_rate(opt, float(hyper["learning_rate"]))
         leaves = leaves[1 + len(names):]
     n = len(params)
     count = int(leaves[0])
     mu, nu = leaves[1:1 + n], leaves[1 + n:1 + 2 * n]
     for p, m, v in zip(params, mu, nu):
         if isinstance(opt, AdamBf16Moments):
-            opt.state[p] = {"count": count, "mu": m.to(torch.bfloat16), "nu": v.to(torch.bfloat16)}
+            opt.state[p] = {"count": torch.tensor(count, dtype=torch.int32, device=p.device),
+                            "mu": m.to(p.device, torch.bfloat16),
+                            "nu": v.to(p.device, torch.bfloat16)}
         else:
-            opt.state[p] = {"step": torch.tensor(float(count)), "exp_avg": m.to(p.dtype),
-                            "exp_avg_sq": v.to(p.dtype)}
+            # a capturable Adam keeps its count on the parameters' device
+            on = p.device if opt.defaults.get("capturable") else "cpu"
+            opt.state[p] = {"step": torch.tensor(float(count), dtype=torch.float32, device=on),
+                            "exp_avg": m.to(p.device, p.dtype),
+                            "exp_avg_sq": v.to(p.device, p.dtype)}
     return int(leaves[-1]) if schedule else count

@@ -22,6 +22,7 @@ import torch
 from ..config import DEFAULT_DTYPE, DSVI_JITTER, resolve_device
 from ..ops.kernels import gibbs, rbf, sq_dist
 from ..ops.linalg import (
+    _tril_idx,
     chol_tri_inv,
     chol_tri_inv_robust,
     conditional_projection,
@@ -369,7 +370,7 @@ def _sample_latents(
 
     L_full = torch.zeros((S, B, D, D), dtype=dtype, device=x.device)
     if D > 1:
-        ii, jj = (torch.as_tensor(a, device=x.device) for a in np.tril_indices(D, k=-1))
+        ii, jj = _tril_idx(D, x.device, -1)
         mean_o, var_o, Wh_off = mgp_mean_var_white(
             A_L0, Lp_inv[:, 1], s2_L0, params.mu_U[:T0], Sigma_U_tril[:T0]
         )
@@ -540,7 +541,7 @@ def predict_y_mean(params: CNMGPParams, Z, x, idx, jitter=DSVI_JITTER, sigma2_g=
     dd = torch.arange(D, device=x.device)
     L_full[:, dd, dd] = torch.exp(mgp_mean(P1, params.mu_U[T0:])).T
     if D > 1:
-        ii, jj = (torch.as_tensor(a, device=x.device) for a in np.tril_indices(D, k=-1))
+        ii, jj = _tril_idx(D, x.device, -1)
         L_full[:, ii, jj] = mgp_mean(P0, params.mu_U[:T0]).T
 
     K_G_12 = gibbs(x, Z, ell_X, ell_Z, sigma2_g)

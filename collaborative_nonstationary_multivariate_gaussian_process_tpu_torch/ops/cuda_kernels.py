@@ -9,7 +9,10 @@ variance quadratic form and its two backward kernels), and each has:
     `chol_inv_cuda`, `quadform_diag_cuda`, `quadform_diag_dw_cuda`,
     `quadform_diag_da_cuda`) that launches the kernel for a CUDA tensor and
     counts the launch in `LAUNCHES`; given a CPU tensor it returns the plain
-    version instead.  For a CUDA tensor it launches or raises: there is no
+    version instead.  A launch recorded into a CUDA graph being captured
+    is not one: it is tallied apart (`take_captured`), and each replay of
+    the graph adds the tally to `LAUNCHES` and `REPLAYED`
+    (`count_replay`).  For a CUDA tensor it launches or raises: there is no
     fallback;
   - a plain PyTorch version (`gibbs_plain`, `rbf_plain`, `kron_mv_plain`,
     `cholesky_plain`, `chol_inv_plain`, `quadform_diag_plain`,
@@ -49,7 +52,10 @@ __all__ = [
     "GIBBS_MAX_DIM",
     "use_kernel",
     "pick",
+    "REPLAYED",
     "reset_launches",
+    "take_captured",
+    "count_replay",
     "build",
     "gibbs_cuda",
     "gibbs_plain",
@@ -102,8 +108,12 @@ CHOL_INV_CROSSOVER_M = 240
 # The largest input dimension the Gibbs kernel takes (the JAX function takes any).
 GIBBS_MAX_DIM = 4
 
-# Launches of each kernel since the last `reset_launches()`.
+# Launches of each kernel since the last `reset_launches()`, those of CUDA
+# graph replays included; `REPLAYED` holds those alone.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+REPLAYED: Dict[str, int] = {name: 0 for name in KERNELS}
+# Launches recorded into CUDA graphs under capture since `take_captured()`.
+_CAPTURED: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build"
@@ -138,6 +148,25 @@ _MAX_M: Dict[tuple, int] = {}
 def reset_launches() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
+        REPLAYED[name] = 0
+
+
+def take_captured() -> Dict[str, int]:
+    """The launches recorded into CUDA graphs under capture since the last
+    call (the kernels a replay of the graph captured meanwhile launches),
+    and start the tally again."""
+    taken = dict(_CAPTURED)
+    for name in KERNELS:
+        _CAPTURED[name] = 0
+    return taken
+
+
+def count_replay(recorded: Dict[str, int]) -> None:
+    """Count one replay of a CUDA graph that recorded `recorded` launches
+    (`take_captured` after its capture): a replay launches each again."""
+    for name, n in recorded.items():
+        LAUNCHES[name] += n
+        REPLAYED[name] += n
 
 
 def _nvcc() -> str:
@@ -221,9 +250,13 @@ def _launch(name: str, device: torch.device, *args) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(_library(name), f"{name}_launch")(*args, stream)
+        captured = torch.cuda.is_current_stream_capturing()
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
+    if captured:
+        _CAPTURED[name] += 1  # recorded into a graph: launched at each replay
+    else:
+        LAUNCHES[name] += 1
 
 
 def _device_type(t: torch.Tensor) -> str:

@@ -1,7 +1,7 @@
 """Linear-algebra primitives of the training, serving and fully-Bayesian
 paths.
 
-The JAX package's `ops/linalg.py` less its dense-conditioning helpers: the
+The JAX package's `ops/linalg.py`, every public function of it: the
 vec <-> lower-triangle transforms of the flat parameter layouts, the batched
 Cholesky (a `torch.autograd.Function` over the Cholesky kernel with the
 Murray pullback), masks and regularized factors, reparameterized sampling from explicit standard-normal
@@ -9,8 +9,12 @@ tensors, sparse-GP conditioning, the fused Cholesky + triangular inverse and
 the whitened forward substitution (each a `torch.autograd.Function` with the
 JAX package's matmul-only backward), the whitened marginal moments (whose
 quadratic form is a `torch.autograd.Function` over the forward and backward
-quadform kernels) and the two Gaussian KLs.  Every function takes an
-optional leading draw dimension S where the JAX package vmaps over draws.
+quadform kernels), the Gaussian KLs, and the dense conditioning of the
+reference's MGP / JGP / CGP helpers (`mgp_mean_var`, `conditional_mean_cov`,
+`joint_sample`, `joint_sample_full`, `conditional_sample`).  Every function
+takes an optional leading draw dimension S where the JAX package vmaps over
+draws, and a sampler its standard-normal noise as tensors where the JAX one
+takes a key.
 """
 
 from __future__ import annotations
@@ -39,6 +43,14 @@ __all__ = [
     "psd_solve",
     "conditional_projection",
     "mgp_mean",
+    "mgp_mean_var",
+    "mgp_mean_var_tril",
+    "conditional_mean_cov",
+    "joint_sample",
+    "joint_sample_full",
+    "conditional_sample",
+    "kl_gaussian",
+    "kl_gaussian_chol",
     "sample_diag",
     "sample_full_cov",
     "chol_tri_inv",
@@ -76,12 +88,15 @@ def _cached_index(key, build):
     return _INDEX_CACHE[key]
 
 
-def _tril_idx(n, device):
+def _tril_idx(n, device, offset=0):
+    """(rows, cols) of `np.tril_indices(n, offset)` on `device`, built once:
+    a host-to-device copy inside a training step would wait on the host,
+    and a CUDA graph of the step cannot hold one."""
     def build():
-        rows, cols = np.tril_indices(n)
+        rows, cols = np.tril_indices(n, offset)
         return torch.as_tensor(rows, device=device), torch.as_tensor(cols, device=device)
 
-    return _cached_index(("tril", n, str(device)), build)
+    return _cached_index(("tril", n, offset, str(device)), build)
 
 
 def vec_to_tril(v, n):
@@ -211,6 +226,100 @@ def conditional_projection(K12, K22, jitter=DSVI_JITTER):
 def mgp_mean(P, mu):
     """Posterior mean P mu: P (N, M), mu (..., M) -> (..., N)."""
     return torch.einsum("nm,...m->...n", P, mu)
+
+
+def mgp_mean_var(P, K12, d11, mu, Sigma):
+    """Marginalized sparse-GP mean and variance from the projection P
+    (reference `MGP_d` / `MGP_mu_sigma2`): mean = P mu, var = max(d11 -
+    sum(P K12, -1), 0) + diag(P Sigma P^T).  P, K12 (N, M); d11 (N,); mu
+    (..., M); Sigma (..., M, M).  Returns mean and var (..., N)."""
+    mean = torch.einsum("nm,...m->...n", P, mu)
+    base = torch.clamp(d11 - torch.sum(P * K12, dim=-1), min=0.0)
+    corr = torch.einsum("nm,...mk,nk->...n", P, Sigma, P)
+    return mean, base + corr
+
+
+def mgp_mean_var_tril(P, K12, d11, mu, scale_tril):
+    """`mgp_mean_var` from the factor L of Sigma = L L^T: diag(P Sigma P^T)
+    as the rowwise ||P L||^2.  scale_tril (..., M, M) lower-triangular."""
+    mean = torch.einsum("nm,...m->...n", P, mu)
+    base = torch.clamp(d11 - torch.sum(P * K12, dim=-1), min=0.0)
+    A = torch.einsum("nm,...mk->...nk", P, scale_tril)
+    return mean, base + torch.sum(A * A, dim=-1)
+
+
+def conditional_mean_cov(K12, K22, mu, Sigma, K11, jitter=DSVI_JITTER):
+    """The full marginalized conditional (reference `MGP`): with P = K12
+    (K22 + jitter I)^-1, mean = P mu and cov = K11 - P K12^T + P Sigma
+    P^T.  mu (..., M), Sigma (..., M, M); returns mean (..., N), cov (...,
+    N, N)."""
+    P = conditional_projection(K12, K22, jitter)
+    mean = torch.einsum("nm,...m->...n", P, mu)
+    cov = K11 - P @ K12.transpose(-1, -2) + torch.einsum("nm,...mk,lk->...nl", P, Sigma, P)
+    return mean, cov
+
+
+def joint_sample(K12, K22, mu, scale_tril, K11_diag, z_v1, z_v2, z_f, jitter=DSVI_JITTER):
+    """A joint draw (f(X), v) (reference `JGP_S`): v = `sample_full_cov(mu,
+    scale_tril, z_v1, z_v2, jitter)`, then f | v from the diagonal
+    conditional, mean P v and variance max(K11_diag - sum(P K12), 0), by
+    `sample_diag` with z_f.  The JAX function splits its key into (k_v,
+    k_f) and k_v into the halves of `sample_full_cov`.  z_v1, z_v2 (...,
+    M) and z_f (..., N); returns (f (..., N), v (..., M))."""
+    v = sample_full_cov(mu, scale_tril, z_v1, z_v2, jitter)
+    P = conditional_projection(K12, K22, jitter)
+    var = torch.clamp(K11_diag - torch.sum(P * K12, dim=-1), min=0.0)
+    return sample_diag(mgp_mean(P, v), var, z_f, jitter), v
+
+
+def joint_sample_full(K12, K22, K11, mu, scale_tril, z_v1, z_v2, z_f, jitter=DSVI_JITTER):
+    """The full-covariance joint draw (reference `JGP`): v as in
+    `joint_sample`, then f = P v + chol(B + jitter I) z_f with B = K11 - P
+    K12^T symmetrized; one (N, N) factorization, not the (N + M)^2 joint.
+    Noise and results as `joint_sample`."""
+    v = sample_full_cov(mu, scale_tril, z_v1, z_v2, jitter)
+    P = conditional_projection(K12, K22, jitter)
+    B = K11 - P @ K12.transpose(-1, -2)
+    Lb = chol_with_jitter(0.5 * (B + B.transpose(-1, -2)), jitter)
+    return mgp_mean(P, v) + mgp_mean(Lb, z_f), v
+
+
+def conditional_sample(K12, K22, v, K11_diag, z, jitter=DSVI_JITTER):
+    """f | v from the diagonal conditional given fixed inducing values v
+    (reference `CGP`), by `sample_diag` with z (..., N)."""
+    P = conditional_projection(K12, K22, jitter)
+    var = torch.clamp(K11_diag - torch.sum(P * K12, dim=-1), min=0.0)
+    return sample_diag(mgp_mean(P, v), var, z, jitter)
+
+
+def kl_gaussian(mu_q, scale_tril_q, mu_p, K_p, jitter=DSVI_JITTER):
+    """KL(N(mu_q, Lq Lq^T + jitter I) || N(mu_p, K_p + jitter I)), batched
+    over the leading dims of mu_q and scale_tril_q (reference
+    `KL_Gaussian`, its jitter on both sides included).  Returns (...,)."""
+    return kl_gaussian_chol(mu_q, scale_tril_q, mu_p, chol_with_jitter(K_p, jitter), jitter)
+
+
+def kl_gaussian_chol(mu_q, scale_tril_q, mu_p, Lp, jitter=DSVI_JITTER, exact_logdet=True):
+    """`kl_gaussian` from the prior's factor Lp = chol(K_p + jitter I).  The
+    trace term is ||Lp^-1 Lq||_F^2 + jitter ||Lp^-1||_F^2.  `exact_logdet`
+    takes logdet(Lq Lq^T + jitter I) from its Cholesky factor; False takes
+    sum(log(diag(Lq)^2 + jitter)), exact only at jitter 0 (the JAX
+    package's cheaper approximation, kept for its callers)."""
+    m = mu_q.shape[-1]
+    if exact_logdet:
+        Lq = chol_with_jitter(scale_tril_q @ scale_tril_q.transpose(-1, -2), jitter)
+        logdet_q = torch.sum(torch.log(torch.diagonal(Lq, dim1=-2, dim2=-1)), dim=-1)
+    else:
+        dq = torch.diagonal(scale_tril_q, dim1=-2, dim2=-1)
+        logdet_q = 0.5 * torch.sum(torch.log(dq * dq + jitter), dim=-1)
+    logdet_p = torch.sum(torch.log(torch.diagonal(Lp, dim1=-2, dim2=-1)), dim=-1)
+    A = torch.linalg.solve_triangular(Lp, scale_tril_q, upper=False)
+    Lp_inv = torch.linalg.solve_triangular(Lp, _eye_like(Lp), upper=False)
+    trace_term = torch.sum(A * A, dim=(-2, -1)) + jitter * torch.sum(Lp_inv * Lp_inv)
+    diff = (mu_p - mu_q)[..., None]
+    sol = torch.linalg.solve_triangular(Lp, diff, upper=False)[..., 0]
+    maha = torch.sum(sol * sol, dim=-1)
+    return (logdet_p - logdet_q) + 0.5 * (trace_term + maha - m)
 
 
 def sample_diag(mean, var, z, jitter=DSVI_JITTER):

@@ -159,7 +159,7 @@ def load_train_state(path: str, params_like, opt_state_like, backend: str = "pic
 def _no_backend(backend: str):
     if backend == "orbax":
         raise NotImplementedError(
-            "the orbax backend (multi-host checkpoints) is not ported: ROADMAP.md, Queue 1 item 10"
+            "the orbax backend (multi-host checkpoints) is not ported: ROADMAP.md, Queue 1 item 7"
         )
     raise ValueError(f"unknown checkpoint backend {backend!r}")
 

@@ -310,8 +310,8 @@ def test_pytree_files_are_read_by_both_packages(tmp_path):
 
 def test_orbax_backend_is_not_ported(tmp_path):
     pt, opt = _stepped_adam(torch.float32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         tckpt.save_train_state(os.path.join(tmp_path, "o"), pt, optimizers.optax_state(opt, pt),
                                backend="orbax")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         tckpt.load_train_state(os.path.join(tmp_path, "o"), pt, [], backend="orbax")

@@ -75,6 +75,31 @@ def test_halton_sequence_is_a_copy():
                                       jchees.halton_sequence(n, offset))
 
 
+def test_init_carry_takes_the_jax_call_form_with_dtype():
+    """`init_carry` has the JAX parameters in the JAX order, and the JAX
+    call form of `parallel/sharded_mcmc.py:167`, `init_carry(lp, q, eps,
+    traj, dtype)`: with float32 on float64 positions every leaf has the
+    dtype and the value of the JAX carry's (the state keeps the positions'
+    float64); without `dtype`, the positions' dtype."""
+    import inspect
+
+    assert (list(inspect.signature(tchees.init_carry).parameters)
+            == list(inspect.signature(jchees.init_carry).parameters))
+    rng = np.random.default_rng(5)
+    q0 = rng.standard_normal((4, DIM))
+    want = jax.jit(lambda q: jchees.init_carry(gauss_lp_jax, q, 0.1, 0.3, jnp.float32))(
+        jnp.asarray(q0))
+    got = tchees.init_carry(gauss_lp_torch, _t(q0), 0.1, 0.3, torch.float32)
+    got_leaves = jax.tree_util.tree_leaves(tuple(got))
+    want_leaves = jax.tree_util.tree_leaves(tuple(want))
+    assert len(got_leaves) == len(want_leaves) == 16
+    for g, w in zip(got_leaves, want_leaves):
+        assert str(g.dtype).split(".")[-1] == str(w.dtype)
+        assert_close(g, w, rtol=1e-10)
+    default = tchees.init_carry(gauss_lp_torch, _t(q0), 0.1, 0.3)
+    assert all(t.dtype == torch.float64 for t in jax.tree_util.tree_leaves(tuple(default)))
+
+
 @pytest.mark.parametrize("target", ["gaussian", "svc"])
 def test_chees_kernel_step_for_step(target):
     """One transition of six chains: positions, log-probs, gradients,

@@ -948,3 +948,120 @@ def test_smc_stage_on_the_card_launches_the_kernels(dev):
     err_k = float((got.double() - ref).abs().max())
     err_p = float((plain.double() - ref).abs().max())
     assert err_k <= 3 * err_p + 1e-4 * scale, (err_k, err_p, scale)
+
+
+# ---------------------------------------------------------------------------
+# The fused DSVI trainer (`infer/dsvi.make_scan_epochs`) as CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def _scan_problem(dev, dtype, D=3, M=12, N=100, B=32, seed=0):
+    """A small DSVI problem on the card (4 batches an epoch, the last one
+    padded) and a fresh trainer over its parameters: (params, mask, Z, x, y,
+    idx, trainer, optimizer)."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer import dsvi
+
+    g = _gen(dev, 100 + seed)
+    x = torch.sort(torch.rand(N, device=dev, generator=g, dtype=dtype)).values
+    idx = torch.randint(0, D, (N,), device=dev, generator=g)
+    y = torch.sin(6 * x) + 0.1 * torch.randn(N, device=dev, generator=g, dtype=dtype)
+    Z = torch.linspace(0.0, 1.0, M, device=dev, dtype=dtype)
+    params = cnmgp.init_params(_gen(dev, seed), D, M, dtype=dtype, device=dev)
+    params = cnmgp.CNMGPParams(*(t.clone().requires_grad_(True) for t in params))
+    opt = dsvi.make_optimizer(params, "adam", 0.01)
+    trainer = dsvi.make_scan_epochs(opt, float(N), 1e-4, -(-N // B), B)
+    return params, dsvi.freeze_mask(params, True), Z, x, y, idx, trainer, opt
+
+
+@pytest.mark.parametrize("dtype, rtol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_scan_epochs_graph_equals_the_eager_epoch(dev, dtype, rtol):
+    """Two graphed epochs and two epochs of the eager body from the same
+    parameters, optimizer and generator state give the same losses and
+    parameters (float32 through the kernels, all five in the step graph and
+    each counted at every replay; float64 through the plain versions, no
+    kernel launched)."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer import dsvi
+
+    p_g, mask, Z, x, y, idx, run, _ = _scan_problem(dev, dtype)
+    p_e, _, _, _, _, _, run_e, _ = _scan_problem(dev, dtype)
+    ck.reset_launches()
+    losses_g = run(p_g, mask, Z, x, y, idx, _gen(dev, 7), 2)
+    torch.cuda.synchronize()
+    (graphs,) = run.graphs.values()
+    replayed = dict(ck.REPLAYED)
+    draws = dsvi.EpochDraws(_gen(dev, 7), 12, 32, 3, dtype)
+    losses_e = torch.cat([dsvi._eager_epoch(run_e.step, p_e, mask, Z, x, y, idx, draws, 4, 32)
+                          for _ in range(2)])
+    torch.cuda.synchronize()
+    assert losses_g.shape == (8,) and torch.isfinite(losses_g).all()
+    assert torch.allclose(losses_g, losses_e, rtol=rtol, atol=0.0), (losses_g, losses_e)
+    for a, b in zip(p_g, p_e):
+        assert _close(a.detach(), b.detach(), rtol)
+    if dtype == torch.float32:
+        assert all(graphs.step_launches[k] > 0 for k in TRAIN_KERNELS), graphs.step_launches
+        assert all(replayed[k] == 8 * graphs.step_launches[k] for k in ck.KERNELS), replayed
+    else:
+        assert sum(graphs.step_launches.values()) == 0 and sum(replayed.values()) == 0
+
+
+def test_scan_epochs_replays_draw_anew_from_the_generator(dev):
+    """Two replays of the step graph draw different noise, each the draw an
+    eager epoch takes from the generator at the same state (the shuffle's
+    keys first, then the steps' noise)."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer import dsvi
+
+    class Recorded(dsvi.EpochDraws):
+        def noise(self):
+            self.last = super().noise()
+            return self.last
+
+    params, mask, Z, x, y, idx, run, _ = _scan_problem(dev, torch.float32)
+    draws = Recorded(_gen(dev, 9), 12, 32, 3, torch.float32)
+    run(params, mask, Z, x, y, idx, draws, 1)
+    (graphs,) = run.graphs.values()
+    draws.generator.manual_seed(11)
+    graphs.shuffle_graph.replay()
+    graphs.step_graph.replay()
+    first = draws.last.z_v1.clone()
+    graphs.step_graph.replay()
+    second = draws.last.z_v1.clone()
+    eager = dsvi.EpochDraws(_gen(dev, 11), 12, 32, 3, torch.float32)
+    eager.sort_keys(x.shape[0])
+    want = [eager.noise().z_v1 for _ in range(2)]
+    assert not torch.equal(first, second)
+    assert torch.equal(first, want[0]) and torch.equal(second, want[1])
+
+
+def test_inference_on_the_graph_rolls_back_and_resumes(dev, tmp_path, monkeypatch):
+    """`inference()`'s fast path on the card runs through the graphs (their
+    launches counted as replays): a rollback of epoch 1 forced once at
+    factor 1 gives the unguarded run's losses bit for bit (the parameters,
+    the optimizer state and the generator restored in place), and a run
+    resumed from a checkpoint starts below 0.7x a fresh start."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer import dsvi
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils.sim import (
+        sim_illustration_low_freq,
+    )
+
+    X, Y, _, _ = sim_illustration_low_freq(seed=22)
+    z = np.linspace(0, 1, 8)
+    kw = dict(batch_size=64, dim_outputs=2, lr=0.02, show_ELBO=False, device=dev)
+    real, seen = dsvi._diverged, []
+
+    def diverged_at_epoch_1_once(losses, n_before):
+        seen.append(n_before)
+        return len(seen) == 2 or real(losses, n_before)
+
+    monkeypatch.setattr(dsvi, "_diverged", diverged_at_epoch_1_once)
+    ck.reset_launches()
+    res = dsvi.inference(X, Y, z, itnum=3, divergence_rollback=True, rollback_lr_factor=1.0, **kw)
+    assert sum(ck.REPLAYED.values()) > 0 and ck.REPLAYED["quadform_diag"] > 0
+    monkeypatch.setattr(dsvi, "_diverged", real)
+    base = dsvi.inference(X, Y, z, itnum=3, **kw)
+    assert res.rollbacks == 1 and seen == [0, 4, 4, 8]
+    assert res.loss_list == base.loss_list
+
+    path = str(tmp_path / "ckpt.pkl")
+    first = dsvi.inference(X, Y, z, itnum=20, PATH=path, save_model=True, **kw)
+    resumed = dsvi.inference(X, Y, z, itnum=2, PATH=path, continuous_training=True, **kw)
+    assert resumed.loss_list[0] < 0.7 * first.loss_list[0]
