@@ -67,7 +67,16 @@ that `run_map` finds from the empirical init, see FB_WARMUP), holds
 the log-posterior and its gradient at the empirical init and at that start
 against float64, checks the
 launches, R-hat, the recovery of the lengthscale and correlation processes,
-and prints samples/s, ESS/s and the host reads; profiles one leapfrog; then
+and prints samples/s, ESS/s and the host reads; profiles one leapfrog;
+predicts from its 240 draws through `models/prediction.py`
+(`prediction_phase`: `svc_predsample` on a 200-point grid and at the
+study's x, the latent processes, the MAP band and its sampling form, with
+the launches of gibbs, rbf and cholesky, every output against float64 and
+the draws' coverage of the observations; every other entry point on 64
+draws around the truth, the hadamard families on a 25% holdout of the flat
+data by `data_split_non`; the three kernels at the path's shapes against
+float64 and timed, and the two SVC entry points timed with the kernels and
+the plain versions in turns, with the device's busy share); then
 the whitened SNMGP at N=1024 (MN = 2048, the Kronecker eigen route through
 the matvec kernel): value and gradient against float64, a short HMC run,
 and `mvn_logpdf_kron` timed on both routes at MN = 1024 and 2048; then
@@ -1557,7 +1566,8 @@ def whitening_checks(ck, calls, what):
 def fb_svc_nuts(ck, dev, smi):
     """scripts/run_mcmc_sim.py's default study through the port on the card.
     Returns (launches of the path, metrics, the (4, 200, 200) covariance at
-    the init for the kernel checks)."""
+    the init for the kernel checks, and (the density, the draws, the MAP)
+    for `prediction_phase`)."""
     from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.drivers import mcmc_sim
     from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer.hmc import (
         value_and_grad,
@@ -1671,7 +1681,279 @@ def fb_svc_nuts(ck, dev, smi):
     p = ld.svc_unwhiten(q0, xt, h["mu_tilde_l"], h["mu_L"], chol_l, chol_L, 2)
     K, _ = ld.svc_covariance(p.tilde_l, p.uL_vecs, xt)
     svc_K = K + torch.exp(p.tilde_sigma2_err)[:, None, None] * torch.eye(2 * FB_N, device=dev)
-    return launched, metrics, svc_K
+    return launched, metrics, svc_K, (dens, samples, q_map)
+
+
+# Prediction from the SVC NUTS draws: the 200-point grid of SURVEY.md §7.2
+# over the study's x range; the other families at the same width (N = 100,
+# M = 2) on PRED_DRAWS draws made with NumPy from PRED_SEED around the
+# simulation's truth, as tests/test_prediction.py builds its draws, the
+# hadamard families on the flat form of the same data with PRED_HELD_OUT of
+# it held out by the port's `data_split_non`.
+PRED_GRID = 200
+PRED_DRAWS = 64
+PRED_SEED = 12
+PRED_HELD_OUT = 0.25
+# the latent hyperparameters of the SNMGP families: the study's lengthscale
+# prior, chip_smoke's SNMGP sigma prior
+PRED_SNMGP_HYPERS = dict(mu_tilde_l=-3.0, alpha_tilde_l=3.0, beta_tilde_l=0.4, mu_tilde_sigma=0.0,
+                         alpha_tilde_sigma=1.0, beta_tilde_sigma=0.4)
+
+
+def three_way(ck, what, fn, got):
+    """`got` = fn(torch.float32) run with the kernels; fn again in float32
+    with every wrapper on its plain version and in float64 (the plain
+    versions by the dispatch rule), on the same noise: the kernels' error
+    against float64 at most 3x the plain float32 one + 1e-4, both of the
+    output's largest magnitude (`value_grad_checks`' rule), and every
+    output finite."""
+    with plain_versions(ck):
+        plain, ref = fn(torch.float32), fn(torch.float64)
+    torch.cuda.synchronize()
+    tup = lambda o: o if isinstance(o, tuple) else (o,)  # noqa: E731
+    got, plain, ref = tup(got), tup(plain), tup(ref)
+    err_k = max(rel_to_max(a, r)[1] for a, r in zip(got, ref))
+    err_p = max(rel_to_max(a, r)[1] for a, r in zip(plain, ref))
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    check(err_k <= 3 * err_p + 1e-4 and finite,
+          f"{what} {[tuple(a.shape) for a in got]} vs float64, of max: kernels {err_k:.3e}, "
+          f"plain {err_p:.3e}; tol 3x plain + 1e-4; finite {finite}")
+
+
+def band_share(draws, y):
+    """The share of y (G, ...) inside the 2.5-97.5% band of draws (G, S, ...)."""
+    lo, hi = (torch.quantile(draws.double(), q, dim=1) for q in (0.025, 0.975))
+    y = torch.as_tensor(y, dtype=torch.float64, device=draws.device)
+    return float(((y >= lo) & (y <= hi)).double().mean())
+
+
+def prediction_phase(ck, dev, smi, dens, samples, q_map):
+    """`models/prediction.py` on the card.  The main path: the SVC NUTS
+    draws of `fb_svc_nuts` (made centered by `mcmc_sim.centered_draws`)
+    through `svc_predsample` on the grid and at the study's x,
+    `svc_latent_predsample` on the grid, and `svc_predmap` and
+    `svc_predmap_sampling` at the centered MAP; the launches of gibbs, rbf
+    and cholesky, every output against float64 (`three_way`), and the
+    in-sample coverage of the draws.  Then every other entry point on
+    draws around the truth, the same gates, with the held-out RMSE and
+    coverage of the indexed-point predictions; the kernels at the path's
+    shapes against float64 and timed; svc_predsample and svc_predmap timed
+    with the kernels and the plain versions in turns, with the device's
+    busy share and the launches of a call.  Returns (the launches of the
+    entry points' runs, {kernel: timing rows at the path's shapes})."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.drivers import mcmc_sim
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import (
+        prediction as pred,
+    )
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils import (
+        data as tdata,
+    )
+
+    t0 = time.perf_counter()
+    N, M, T = dens["N"], dens["M"], dens["T"]
+    x, Y = dens["x"], dens["Y"]
+    hyp = {k: v for k, v in mcmc_sim.HYPERS.items() if k not in ("a", "b")}
+    dim = samples.shape[-1]
+    flat = mcmc_sim.centered_draws(dens, samples.double().cpu().numpy()).reshape(-1, dim)
+    hists = (flat[:, :N], flat[:, N:N + N * T], flat[:, -1])
+    c_map = mcmc_sim.centered_draws(dens, q_map.double().cpu().numpy()).reshape(-1)
+    map_draw = (c_map[:N], c_map[N:N + N * T], c_map[-1])
+    S, G = flat.shape[0], PRED_GRID
+    grid = np.linspace(x.min(), x.max(), G)
+    gen = torch.Generator(device=dev).manual_seed(PRED_SEED)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device=dev)  # noqa: E731
+    z_grid = pred.SVCNoise(randn(S, G), randn(S, G, T), randn(S, G, M))
+    z_x = pred.SVCNoise(randn(S, N), randn(S, N, T), randn(S, N, M))
+    z_lat = pred.SVCNoise(randn(S, G), randn(S, G, T))
+    main = {
+        "svc_predsample on the grid": lambda dt: pred.svc_predsample(
+            hists, Y, x, grid, noise=z_grid, dtype=dt, **hyp),
+        "svc_predsample at the study's x": lambda dt: pred.svc_predsample(
+            hists, Y, x, x, noise=z_x, dtype=dt, **hyp),
+        "svc_latent_predsample on the grid": lambda dt: pred.svc_latent_predsample(
+            hists, x, grid, noise=z_lat, dtype=dt, **hyp),
+        "svc_predmap at the MAP": lambda dt: pred.svc_predmap(
+            map_draw, Y, x, grid, dtype=dt, **hyp),
+        "svc_predmap_sampling at the MAP": lambda dt: pred.svc_predmap_sampling(
+            S, map_draw, Y, x, grid, noise=z_grid, dtype=dt, **hyp),
+    }
+    print(f"prediction: the SVC NUTS run's {S} draws (N={N}, M={M}), a {G}-point grid", flush=True)
+    ck.reset_launches()
+    calls = {}
+    with recording(ck, ("gibbs", "rbf", "cholesky"), calls):
+        outs = {name: fn(torch.float32) for name, fn in main.items()}
+    torch.cuda.synchronize()
+    launched = dict(ck.LAUNCHES)
+    check(all(launched[k] > 0 for k in ("gibbs", "rbf", "cholesky")),
+          f"prediction from the SVC NUTS draws launched {launched}")
+    at_x = outs["svc_predsample at the study's x"]  # (N, S, M)
+    cover = band_share(at_x, Y)
+    rmse = float(torch.sqrt(torch.mean((at_x.double().mean(1).cpu() - torch.as_tensor(Y)) ** 2)))
+    band = outs["svc_predmap at the MAP"]
+    print(f"prediction at the study's x: RMSE of the draws' mean {rmse:.4f}; the MAP band's "
+          f"half width {float((band[2] - band[1]).mean()):.4f} on the grid")
+    check(cover >= 0.90, f"SVC NUTS predictive: {cover:.4f} of the study's {N * M} observations "
+          f"inside the 2.5-97.5% band of the draws at their x (>= 0.90)")
+
+    # ---- every other entry point, on draws around the truth
+    rng = np.random.default_rng(PRED_SEED)
+    K = PRED_DRAWS
+    true_tl = np.log(dens["true_l"])
+    L_true = np.zeros((N, M, M))
+    L_true[:, [0, 1, 1], [0, 0, 1]] = dens["true_L_vecs"].reshape(N, T)
+    L_avg = np.linalg.cholesky(np.mean(L_true @ L_true.transpose(0, 2, 1), axis=0))
+    lvec = L_avg[[0, 1, 1], [0, 0, 1]]
+    uvec = np.where([True, False, True], np.log(np.abs(lvec)), lvec)
+    ts2e = np.log(dens["true_s2e"])
+    noise_ = lambda *shape: 0.05 * rng.standard_normal(shape)  # noqa: E731
+    snmgp = (true_tl + noise_(K, N), noise_(K, N), uvec + noise_(K, T), ts2e + noise_(K))
+    lmc = (true_tl.mean() + noise_(K), noise_(K), uvec + noise_(K, T), ts2e + noise_(K))
+    xf, i_f, yf = np.tile(x, M), np.repeat(np.arange(M), N), Y.T.reshape(-1)
+    x_tr, x_te, i_tr, i_te, y_tr, y_te = tdata.data_split_non(
+        xf, i_f, yf, test_size=PRED_HELD_OUT, random_state=PRED_SEED)
+    pos, n_tr, n_te = np.searchsorted(x, x_tr), x_tr.size, x_te.size
+    had = {
+        "snmgp": ((true_tl[pos] + noise_(K, n_tr), noise_(K, n_tr), lvec + noise_(K, T),
+                   ts2e + noise_(K)), PRED_SNMGP_HYPERS, pred.SNMGPNoise),
+        "lmc": ((true_tl.mean() + noise_(K), noise_(K), lvec + noise_(K, T), ts2e + noise_(K)), {},
+                pred.LMCNoise),
+        "svc": ((true_tl[pos] + noise_(K, n_tr),
+                 dens["true_L_vecs"].reshape(N, T)[pos].reshape(-1) + noise_(K, n_tr * T),
+                 ts2e + noise_(K)), hyp, pred.SVCNoise),
+    }
+
+    def noise_for(cls, g):
+        fields = {"tilde_l": (K, g), "tilde_sigma": (K, g), "L": (K, g, T), "y": (K, g, M)}
+        return cls(**{f: randn(*fields[f]) for f in cls._fields})
+
+    def mean(h):
+        return tuple(np.mean(v, axis=0) for v in h)
+
+    def hadamard_calls(fam, h, fh, cls):
+        zg, zt = noise_for(cls, G), noise_for(cls, n_te)
+        data = (x_tr, i_tr, y_tr, M)
+        fn = lambda kind: getattr(pred, f"{fam}_hadamard_{kind}")  # noqa: E731
+        return {
+            f"{fam}_hadamard_predsample": lambda dt: fn("predsample")(
+                h, *data, grid, noise=zg, dtype=dt, **fh),
+            f"{fam}_hadamard_predmap": lambda dt: fn("predmap")(
+                mean(h), *data, grid, dtype=dt, **fh),
+            f"{fam}_hadamard_indexedpoint_predsample": lambda dt: fn("indexedpoint_predsample")(
+                h, *data, x_te, i_te, noise=zt, dtype=dt, **fh),
+            f"{fam}_hadamard_indexedpoint_predmap": lambda dt: fn("indexedpoint_predmap")(
+                mean(h), *data, x_te, i_te, dtype=dt, **fh),
+        }
+
+    z_sn, z_lmc = noise_for(pred.SNMGPNoise, G), noise_for(pred.LMCNoise, G)
+    z_sn_lat = noise_for(pred.SNMGPNoise, G)._replace(y=None)
+    sh = PRED_SNMGP_HYPERS
+    others = {
+        "snmgp_predsample": lambda dt: pred.snmgp_predsample(
+            snmgp, Y, x, grid, noise=z_sn, dtype=dt, **sh),
+        "snmgp_predmap": lambda dt: pred.snmgp_predmap(mean(snmgp), Y, x, grid, dtype=dt, **sh),
+        "snmgp_predmap_sampling": lambda dt: pred.snmgp_predmap_sampling(
+            K, mean(snmgp), Y, x, grid, noise=z_sn, dtype=dt, **sh),
+        "snmgp_latent_predsample": lambda dt: pred.snmgp_latent_predsample(
+            snmgp, x, grid, noise=z_sn_lat, dtype=dt, **sh),
+        "lmc_predsample": lambda dt: pred.lmc_predsample(lmc, Y, x, grid, noise=z_lmc, dtype=dt),
+        "lmc_predmap": lambda dt: pred.lmc_predmap(mean(lmc), Y, x, grid, dtype=dt),
+    }
+    for fam, (h, fh, cls) in had.items():
+        others.update(hadamard_calls(fam, h, fh, cls))
+    ck.reset_launches()
+    with recording(ck, ("gibbs", "rbf", "cholesky"), calls):
+        other_outs = {name: fn(torch.float32) for name, fn in others.items()}
+    torch.cuda.synchronize()
+    for k, v in ck.LAUNCHES.items():
+        launched[k] += v
+    print(f"prediction: the other {len(others)} entry points ({K} draws around the truth; the "
+          f"hadamard families on {n_tr} of the {N * M} flat points) launched {dict(ck.LAUNCHES)}")
+    for fam in had:
+        ip_s = other_outs[f"{fam}_hadamard_indexedpoint_predsample"]  # (n_te, K)
+        ip_m = other_outs[f"{fam}_hadamard_indexedpoint_predmap"]  # (3, n_te)
+        y_t = torch.as_tensor(y_te, dtype=torch.float64)
+        rmse_m = float(torch.sqrt(torch.mean((ip_m[1].double().cpu() - y_t) ** 2)))
+        lo, hi = ip_m[0].double().cpu(), ip_m[2].double().cpu()
+        in_map = float(((y_t >= lo) & (y_t <= hi)).double().mean())
+        print(f"prediction held out, {fam} hadamard indexed-point ({n_te} points): RMSE of the MAP "
+              f"mean {rmse_m:.4f}; coverage of the MAP band {in_map:.4f}, of the draws' 2.5-97.5% "
+              f"band {band_share(ip_s, y_te):.4f}")
+
+    # ---- every output against float64; the plain and float64 runs launch nothing
+    ck.reset_launches()
+    for name, fn in main.items():
+        three_way(ck, name, fn, outs[name])
+    for name, fn in others.items():
+        three_way(ck, name, fn, other_outs[name])
+    check(sum(ck.LAUNCHES.values()) == 0,
+          "prediction: the plain and float64 runs launched no kernel")
+
+    # ---- the kernels at the main path's shapes: against float64, timed
+    more = {}
+    def f64(args):
+        return tuple(a.double() if isinstance(a, torch.Tensor) else a for a in args)
+
+    (Sig,) = next(a for a in calls["cholesky"] if a[0].shape == (S, M * N, M * N))
+    L = ck.cholesky_cuda(Sig)
+    torch.cuda.synchronize()
+    shape = tuple(Sig.shape)
+    witnessed("cholesky, SVC prediction train factors", L, ck.cholesky_plain(Sig),
+              ck.cholesky_plain(Sig.double()), 1e-6, shape)
+    m = Sig.shape[-1]
+    more["cholesky"] = [timing_entry(
+        f"cholesky {shape} SVC prediction train factors", lambda: ck.cholesky_cuda(Sig),
+        lambda: ck.cholesky_plain(Sig), lambda: torch.linalg.cholesky_ex(Sig),
+        bound_ms(4 * S * (m * (m + 1) // 2 + m * m), S * m**3 / 3))]
+    g_args = next(a for a in calls["gibbs"] if a[2].shape == (S, N) and a[3].shape == (S, G))
+    K_g = ck.gibbs_cuda(*g_args)
+    witnessed("gibbs, SVC prediction cross-covariances", K_g, ck.gibbs_plain(*g_args),
+              ck.gibbs_plain(*f64(g_args)), 1e-6, tuple(K_g.shape))
+    n_el = K_g.numel()
+    more["gibbs"] = [timing_entry(
+        f"gibbs {tuple(K_g.shape)} SVC prediction cross-covariances",
+        lambda: ck.gibbs_cuda(*g_args),
+        lambda: ck.gibbs_plain(*g_args), None,
+        bound_ms(4 * (N + G + S * (N + G) + n_el), n_el * 15), inner=5)]
+    r_args = next(a for a in calls["rbf"] if a[1].shape == (N + G,))
+    K_r = ck.rbf_cuda(*r_args)
+    witnessed("rbf, SVC prediction latent priors", K_r, ck.rbf_plain(*r_args),
+              ck.rbf_plain(*f64(r_args)), 1e-6, tuple(K_r.shape))
+    n_el = K_r.numel()
+    more["rbf"] = [timing_entry(
+        f"rbf {tuple(K_r.shape)} SVC prediction latent priors", lambda: ck.rbf_cuda(*r_args),
+        lambda: ck.rbf_plain(*r_args), None, bound_ms(4 * (2 * N + G + 4 + n_el), 5 * n_el),
+        inner=10)]
+
+    # ---- the entry points timed: inputs on the device, so a call copies nothing from the host
+    td = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    hd, Yd, xd, gd = tuple(td(v) for v in hists), td(Y), td(x), td(grid)
+    md = tuple(td(v) for v in map_draw)
+    timed = {
+        f"svc_predsample ({S} draws": lambda: pred.svc_predsample(
+            hd, Yd, xd, gd, noise=z_grid, **hyp),
+        "svc_predmap (the MAP": lambda: pred.svc_predmap(md, Yd, xd, gd, **hyp),
+    }
+    for name, fn in timed.items():
+        ck.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        per_call = {k: v for k, v in ck.LAUNCHES.items() if v}
+        turns = {}
+        for route in ("kernels", "plain", "plain", "kernels"):
+            with plain_versions(ck) if route == "plain" else ExitStack():
+                turns.setdefault(route, []).append(host_ms(fn, reps=10))
+        on_device = device_ms(fn, reps=5)
+        wall = float(np.mean(turns["kernels"]))
+        k, p = turns["kernels"], turns["plain"]
+        print(f"time {name}, N={N}, M={M}, G={G}): kernels {k[0]:.3f} / {k[1]:.3f} ms, "
+              f"plain {p[0]:.3f} / {p[1]:.3f} ms a call (host clock to a sync, median of 10, turns "
+              f"kernels, plain, plain, kernels); {on_device:.3f} ms of it on the device (CUDA "
+              f"events, the host's enqueue hidden), busy {on_device / wall:.1%}; launches a call "
+              f"{per_call} ({smi})", flush=True)
+        print(f"profile of one {name.split(' (')[0]} call:")
+        profile_breakdown(fn, watch=("chol", "gibbs", "rbf", "trsm"))
+    print(f"prediction phase: {time.perf_counter() - t0:.1f} s ({smi})", flush=True)
+    return launched, more
 
 
 def fb_snmgp(ck, dev, smi):
@@ -1979,6 +2261,33 @@ def samplers_main() -> int:
     return 1 if FAILURES else 0
 
 
+def prediction_main(warmup: int = 20) -> int:
+    """The SVC NUTS phase with its warmup cut to `warmup` transitions (its
+    gates are printed but not counted), then the prediction phase on its
+    draws: python3 -u -c 'import sys, chip_smoke; sys.exit(chip_smoke.prediction_main())'"""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    ck.build()
+    dev = torch.device("cuda")
+    with mock.patch.dict(globals(), FB_WARMUP=warmup):
+        _, _, _, nuts_run = fb_svc_nuts(ck, dev, smi)
+    print(f"(the cut NUTS run's gates not counted: {len(FAILURES)} failed)")
+    FAILURES.clear()
+    prediction_phase(ck, dev, smi, *nuts_run)
+    return 1 if FAILURES else 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2267,8 +2576,11 @@ def main() -> int:
 
     # ------------------------------------------------------ fully Bayesian
     t0 = time.perf_counter()
-    fb_launched, fb_metrics, svc_K = fb_svc_nuts(ck, dev, smi)
+    fb_launched, fb_metrics, svc_K, nuts_run = fb_svc_nuts(ck, dev, smi)
     print(f"SVC NUTS phase {time.perf_counter() - t0:.1f} s; launches {fb_launched}")
+    t0 = time.perf_counter()
+    pred_launched, pred_more = prediction_phase(ck, dev, smi, *nuts_run)
+    print(f"prediction phase {time.perf_counter() - t0:.1f} s; launches {pred_launched}")
     fb = fb_kernel_checks(ck, gen, dev, svc_K)
     more = {"cholesky": cholesky_routes(ck, gen, dev, smi), "kron_mv": kron_layouts(ck, gen, dev, smi),
             "quadform_diag": qf_rows, "gibbs": gibbs_rows, "rbf": rbf_rows,
@@ -2282,10 +2594,11 @@ def main() -> int:
     t0 = time.perf_counter()
     smc_launched, smc_more = fb_smc(ck, dev, smi)
     print(f"SMC phase {time.perf_counter() - t0:.1f} s; launches {smc_launched}")
-    for name, entries in smc_more.items():
+    for name, entries in list(smc_more.items()) + list(pred_more.items()):
         more[name] = more[name] + entries
     for k in ck.KERNELS:
-        launches[k] += fb_launched[k] + sn_launched[k] + ch_launched[k] + smc_launched[k]
+        launches[k] += (fb_launched[k] + pred_launched[k] + sn_launched[k] + ch_launched[k]
+                        + smc_launched[k])
     for name, ((kern, plain, lib, inner, (b_ms, b_by)), _) in fb.items():
         k_ms = device_ms(kern, inner=inner)
         p_ms = device_ms(plain, inner=inner)

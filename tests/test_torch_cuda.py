@@ -1065,3 +1065,64 @@ def test_inference_on_the_graph_rolls_back_and_resumes(dev, tmp_path, monkeypatc
     first = dsvi.inference(X, Y, z, itnum=20, PATH=path, save_model=True, **kw)
     resumed = dsvi.inference(X, Y, z, itnum=2, PATH=path, continuous_training=True, **kw)
     assert resumed.loss_list[0] < 0.7 * first.loss_list[0]
+
+
+@pytest.mark.parametrize("family", ["svc", "snmgp_hadamard"])
+def test_prediction_on_the_card_launches_the_kernels(dev, family):
+    """`models/prediction.py` on the card: the SVC predictive of 32 draws
+    around the study's truth (N = 60) on a 50-point grid, and the
+    heterotopic SNMGP predictive on the flat form of the same data; gibbs,
+    rbf and cholesky launched, no launch in float64, and the kernels' f32
+    draws at most 3x the plain f32 error of float64 + 1e-4 of max, on the
+    same noise."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import (
+        prediction as pred,
+    )
+
+    N, S, G = 60, 32, 50
+    x, l, L_vecs, s2e, Y = sim_mnts(M=2, N=N, seed=3)
+    r = np.random.default_rng(4)
+    grid = np.linspace(0.0, 1.0, G)
+    g = _gen(dev, 31)
+    if family == "svc":
+        hists = (np.log(l) + 0.05 * r.standard_normal((S, N)),
+                 linalg.lvec_to_uvec(torch.as_tensor(L_vecs.reshape(N, 3)), 2).numpy().reshape(-1)
+                 + 0.02 * r.standard_normal((S, 3 * N)), np.log(s2e) + 0.05 * r.standard_normal(S))
+        noise = pred.SVCNoise(*(torch.randn(*s, device=dev, generator=g)
+                                for s in ((S, G), (S, G, 3), (S, G, 2))))
+
+        def run(dtype):
+            return pred.svc_predsample(hists, Y, x, grid, mu_tilde_l=-3.0, alpha_tilde_l=3.0,
+                                       beta_tilde_l=0.4, noise=noise, dtype=dtype)
+    else:
+        xf, idx, yf = np.tile(x, 2), np.repeat([0, 1], N), Y.T.reshape(-1)
+        tl = np.log(np.tile(l, 2))
+        hists = (tl + 0.05 * r.standard_normal((S, 2 * N)), 0.05 * r.standard_normal((S, 2 * N)),
+                 np.array([1.5, 0.3, 1.2]) + 0.02 * r.standard_normal((S, 3)),
+                 np.log(s2e) + 0.05 * r.standard_normal(S))
+        noise = pred.SNMGPNoise(*(torch.randn(*s, device=dev, generator=g)
+                                  for s in ((S, G), (S, G), (S, G, 2))))
+
+        def run(dtype):
+            return pred.snmgp_hadamard_predsample(hists, xf, idx, yf, 2, grid, mu_tilde_l=-3.0,
+                                                  alpha_tilde_l=3.0, beta_tilde_l=0.4,
+                                                  beta_tilde_sigma=0.4, noise=noise, dtype=dtype)
+
+    res = {}
+    for tag, dtype, plain in (("kernels", torch.float32, False), ("plain", torch.float32, True),
+                              ("float64", torch.float64, True)):
+        ck.reset_launches()
+        with _plain_versions() if plain else ExitStack():
+            res[tag] = run(dtype)
+        torch.cuda.synchronize()
+        launched = dict(ck.LAUNCHES)
+        if plain:
+            assert sum(launched.values()) == 0, launched
+        else:
+            assert all(launched[k] > 0 for k in ("gibbs", "rbf", "cholesky")), launched
+    assert res["kernels"].shape == (G, S, 2) and bool(torch.isfinite(res["kernels"]).all())
+    ref = res["float64"]
+    scale = float(ref.abs().max())
+    err_k = float((res["kernels"].double() - ref).abs().max())
+    err_p = float((res["plain"].double() - ref).abs().max())
+    assert err_k <= 3 * err_p + 1e-4 * scale, (err_k, err_p, scale)

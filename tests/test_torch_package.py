@@ -1,7 +1,7 @@
-"""Package-level properties of the PyTorch port: it never imports JAX or the
-JAX package, its entry points refuse to run on the CPU unless asked, and its
-own copies of the JAX package's constants and NumPy utilities agree with the
-originals."""
+"""Package-level properties of the PyTorch port: it never imports JAX, the
+JAX package or scikit-learn, its entry points refuse to run on the CPU
+unless asked, and its own copies of the JAX package's constants and NumPy
+utilities agree with the originals."""
 
 import ast
 import subprocess
@@ -29,6 +29,9 @@ from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer.c
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer.smc import run_smc
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import cnmgp as tc
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import predict as tp
+from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import (
+    prediction as tpred,
+)
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils import data as tdata
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils import empirical as temp
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils import metrics as tmetrics
@@ -55,8 +58,9 @@ def test_importing_the_port_loads_no_jax():
         f"import {PORT}.infer.chees, {PORT}.infer.smc\n"
         f"import {PORT}.drivers.mcmc_sim, {PORT}.drivers.model_comparison\n"
         f"import {PORT}.parallel.sharded_mcmc, {PORT}.utils.empirical\n"
-        f"import {PORT}.utils.posterior_analysis\n"
-        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', '{JAX_PACKAGE}'))\n"
+        f"import {PORT}.utils.posterior_analysis, {PORT}.models.prediction\n"
+        f"bad = sorted(m for m in sys.modules\n"
+        f"             if m.split('.')[0] in ('jax', 'jaxlib', 'sklearn', '{JAX_PACKAGE}'))\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
@@ -73,7 +77,7 @@ def _imported_modules(path):
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_module_of_the_port_imports_jax(path):
     roots = {name.split(".")[0] for name in _imported_modules(path)}
-    assert not roots & {"jax", "jaxlib", JAX_PACKAGE}, roots
+    assert not roots & {"jax", "jaxlib", "sklearn", JAX_PACKAGE}, roots
 
 
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
@@ -102,6 +106,15 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
         mcmc_sim.run(["--N", "8", "--warmup", "2", "--samples", "2", "--sampler", "chees"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         model_comparison.run(["--N", "8", "--particles", "8", "--mutations", "1"])
+    x, Y, xs = np.linspace(0, 1, 4), np.zeros((4, 2)), np.array([0.5])
+    svc_hists = (np.zeros((2, 4)), np.zeros((2, 12)), np.zeros(2))
+    snmgp_map = (np.zeros(4), np.zeros(4), np.zeros(3), 0.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpred.svc_predsample(svc_hists, Y, x, xs)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpred.snmgp_predmap(snmgp_map, Y, x, xs)
+    assert tpred.svc_predsample(svc_hists, Y, x, xs, device="cpu").device.type == "cpu"
+    assert tpred.snmgp_predmap(snmgp_map, Y, x, xs, device="cpu").shape == (3, 1, 2)
     pos, _ = run_chees(lp, q0, torch.Generator(), num_warmup=2, num_samples=2, device="cpu")
     assert pos.device.type == "cpu" and pos.shape == (2, 2, 3)
     _, info = run_smc(lp, lp, q0, torch.Generator(), num_leapfrog=2, device="cpu")
