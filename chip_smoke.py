@@ -91,8 +91,24 @@ against float64, and the DIC of the draws; and
 particles): each log Z in a band of the JAX package's runs, beta reaching
 1, a nonstationary model best, each tempered density against float64, and
 chol_inv at (512, 96, 96) and gibbs at (512, 48, 48) on its inputs against
-float64 and timed.  Each phase prints its seconds, and the script its
-total.  The second-to-last line is a JSON object with one entry per kernel (its
+float64 and timed.  Then the real-data path (`realdata_phases`):
+`scripts/run_workload.py` through `drivers/run_workload.py` at ECoG width
+(D=78, with the spatial analysis of 200 draws on 200 grid points), HCP
+(D=15) and PM2.5-full (D=6, N=302,537; its 100 epochs cut to 12), each
+held to the script's keys, no rollback, every step's loss finite, the
+final loss below the first, coverage >= 0.9 and a test RMSE and CI length
+within 1.25x the JAX package's recorded run; chol_inv's float64 refactor
+of a float32 failure on the HCP tilde_ell prior at trained variances
+against float64; `negative_selbo` at an HCP and a PM2.5-full batch
+against float64 at three row orders;
+6a/6b/6c at (G, N) = (105, 1000) and (15, 1000) and gibbs (1, 1000, 100)
+timed; `scripts/baseline_parity.py` through `drivers/baseline_parity.py`
+in float32 with the kernels against its float64 run, the baselines'
+likelihoods and gradients against float64, `fit_sicm` at PM2.5-sub width
+and cholesky at (1, 100, 100) and (1, 200, 200) timed; and
+`scripts/sim_parity.py` once at its protocol, held to the assertions of
+`tests/test_dsvi_e2e.py`.  Each phase prints its seconds, and the script
+its total.  The second-to-last line is a JSON object with one entry per kernel (its
 other shapes and routes under "more"); the last
 line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2288,6 +2304,456 @@ def prediction_main(warmup: int = 20) -> int:
     return 1 if FAILURES else 0
 
 
+# ------------------------------------------------------------------------
+# The real-data workloads, the GP baselines and the simulation protocol
+# ------------------------------------------------------------------------
+
+# scripts/run_workload.py's key set (:194-301), and each configuration's
+# test RMSE and CI length as the JAX package recorded them on the same
+# surrogate (results/workload_ecog_spatial_r5.json, workload_hcp_tpu.json,
+# workload_pm25_full_tpu_r4.json: quality numbers, not times), which the
+# port's may exceed by at most WORKLOAD_SLACK.  Full width each; only
+# PM2.5-full's 100 epochs are cut, to the 12 of the JAX run.  Every step's
+# loss must be finite, as in those runs.
+WORKLOAD_KEYS = {"workload", "source", "kl_mode", "D", "N", "M", "batch_size", "itnum",
+                 "grad_clip", "ckpt_bf16_moments", "lr_decay", "rollbacks", "final_loss",
+                 "steps_per_s", "train_s", "loss_min", "loss_argmin", "first_nonfinite_step",
+                 "first_blowup_step", "rmse_test", "ci_length", "coverage"}
+WORKLOAD_RUNS = (
+    ("ECoG D=78 M=100 B=512, 50 epochs, spatial analysis", ("ecog", "--spatial-analysis"), 0.2934,
+     1.4294),
+    ("HCP D=15 M=100 B=1000, 50 epochs", ("hcp",), 0.6476, 3.5516),
+    ("PM2.5-full D=6 M=100 B=1000, 12 of 100 epochs", ("pm25", "--full", "--itnum", "12"), 0.8301,
+     4.2694),
+)
+WORKLOAD_SLACK = 1.25
+# the quadform's new shapes (G, N) on these paths: HCP's 105 offdiagonal
+# groups and PM2.5's 15 at B = 1000 (M = 100)
+WORKLOAD_QF_SHAPES = ((105, 1000), (15, 1000))
+
+
+def selbo_check(ck, td, tc, name, lists, D, B, hyperpars, dev):
+    """One `negative_selbo` value and every parameter's gradient on a batch
+    of B rows of a workload's data (its init: `init_params`, mu_v = 1, its
+    length scales), the kernels and the plain versions in f32 against
+    float64.  A scalar hyperparameter's gradient sums large terms that
+    cancel, so its f32 error moves with the order of the batch rows: both
+    routes take the rows (and their noise) in the same three orders, and
+    the kernels' worst error of the three may be at most 3x the plain
+    versions' worst + 1e-4 of max.  Prints each order's readings."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils.data import (
+        flatten_output_lists,
+    )
+
+    flat = flatten_output_lists(*lists)
+    x = torch.as_tensor(flat.x, dtype=torch.float32, device=dev)
+    y = torch.as_tensor(flat.y, dtype=torch.float32, device=dev)
+    idx = torch.as_tensor(flat.idx, dtype=torch.int64, device=dev)
+    Z = torch.as_tensor(np.linspace(0.0, float(flat.x.max()), M_PM), dtype=torch.float32,
+                        device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params = td.apply_hyperpars(tc.init_params(gen, D, M_PM, device=dev, mu_v=np.ones(M_PM)),
+                                hyperpars)
+    sel = torch.randperm(x.shape[0], device=dev, generator=gen)[:B]
+    noise = tc.draw_train_noise(gen, 1, M_PM, B, D)
+    w = torch.ones(B, device=dev)
+    orders = [torch.arange(B, device=dev)] + [
+        torch.randperm(B, device=dev, generator=gen) for _ in range(2)]
+
+    def grads(dtype, order):
+        p = tc.CNMGPParams(*(t.detach().to(dtype).requires_grad_(True) for t in params))
+        nz = noise._replace(**{f: getattr(noise, f)[..., order] for f in ("z_te", "z_diag", "z_off")})
+        nz = tc.CNMGPNoise(*(None if z is None else z.to(dtype) for z in nz))
+        b = sel[order]
+        loss = tc.negative_selbo(p, Z.to(dtype), x[b].to(dtype), y[b].to(dtype), idx[b],
+                                 w.to(dtype), float(x.shape[0]), nz)
+        loss.backward()
+        return [loss.detach()] + [t.grad for t in p]
+
+    ck.reset_launches()
+    kernels = [grads(torch.float32, o) for o in orders]
+    torch.cuda.synchronize()
+    launched = dict(ck.LAUNCHES)
+    with plain_versions(ck):
+        plains = [grads(torch.float32, o) for o in orders]
+    ck.reset_launches()
+    ref = grads(torch.float64, orders[0])
+    torch.cuda.synchronize()
+    check(all(launched[k] >= len(orders) for k in TRAIN_KERNELS)
+          and sum(ck.LAUNCHES.values()) == 0,
+          f"{name} negative_selbo batch: float32 launched {launched}, float64 {dict(ck.LAUNCHES)}")
+    worst = 0.0
+    for i, what in enumerate(("value",) + tc.CNMGPParams._fields):
+        errs_k = [rel_to_max(g[i], ref[i])[1] for g in kernels]
+        errs_p = [rel_to_max(pl[i], ref[i])[1] for pl in plains]
+        tol = 3 * max(errs_p) + 1e-4
+        worst = max(worst, max(errs_k) / tol)
+        check(max(errs_k) <= tol and all(bool(torch.isfinite(g[i]).all()) for g in kernels),
+              f"{name} {what} vs float64, of max, at three row orders: kernels "
+              + ", ".join(f"{e:.3e}" for e in errs_k) + "; plain "
+              + ", ".join(f"{e:.3e}" for e in errs_p) + "; tol 3x the worst plain + 1e-4")
+    print(f"{name}: worst kernel error / tolerance {worst:.3f}", flush=True)
+
+
+# Log variances of the tilde_ell prior gram at HCP width (Z on
+# linspace(0, 4799, 100), length scale e^5, + 1e-4): float32 factorizations
+# fail on some of e^5.8-e^6.5, which the float32 rounding of the gram keeps
+# positive-definite up to about e^6.3-6.5, and e^8 is indefinite.
+REFACTOR_S2_LOGS = (5.0, 5.8, 6.0, 6.2, 6.4, 6.5, 8.0)
+
+
+def chol_inv_refactor_check(ck, dev, smi):
+    """chol_inv's float64 refactor of a float32 failure (the resident route)
+    on the HCP tilde_ell prior at trained variances: every member that
+    float64 factors is finite and held against float64 as any other (3x the
+    plain version's error + 1e-6 of max), the members cuSOLVER's float32
+    fails counted; the indefinite member NaN as the plain version has it.
+    Times the call against a batch of healthy members of the same shape."""
+    z = torch.linspace(0.0, 4799.0, M_PM, device=dev)
+    d2 = (z[:, None] - z[None, :]) ** 2
+    ls = torch.exp(torch.tensor(5.0, device=dev))
+    eye = torch.eye(M_PM, device=dev)
+    K = torch.stack([torch.exp(torch.tensor(s, device=dev)) * torch.exp(-d2 * (0.5 / (ls * ls)))
+                     + 1e-4 * eye for s in REFACTOR_S2_LOGS])
+    L, Linv = ck.chol_inv_cuda(K)
+    Lp, Lip = ck.chol_inv_plain(K)
+    f32_failed = torch.linalg.cholesky_ex(K)[1] != 0
+    pd = torch.linalg.cholesky_ex(K.double())[1] == 0
+    torch.cuda.synchronize()
+    n_res = int((f32_failed & pd).sum())
+    check(n_res > 0 and bool(pd[0]) and not bool(pd[-1])
+          and bool(torch.isfinite(L[pd]).all() and torch.isfinite(Linv[pd]).all())
+          and torch.equal(torch.isnan(L), torch.isnan(Lp))
+          and torch.equal(torch.isnan(Linv), torch.isnan(Lip)),
+          f"chol_inv refactor: {n_res} of {len(REFACTOR_S2_LOGS)} HCP tilde_ell priors fail "
+          f"cuSOLVER's float32 and factor in float64, all finite; float64 takes "
+          f"{int(pd.sum())}; NaN where the plain version has it")
+    L64, Li64 = ck.chol_inv_plain(K[pd].double())
+    shape = f"({int(pd.sum())}, {M_PM}, {M_PM}) trained priors"
+    witnessed("chol_inv L", L[pd], Lp[pd], L64, 1e-6, shape)
+    witnessed("chol_inv L^-1", Linv[pd], Lip[pd], Li64, 1e-6, shape)
+    healthy = K[:1].expand(len(REFACTOR_S2_LOGS), -1, -1).contiguous()
+    ms, ms_h = device_ms(lambda: ck.chol_inv_cuda(K)), device_ms(lambda: ck.chol_inv_cuda(healthy))
+    print(f"chol_inv refactor: ({len(REFACTOR_S2_LOGS)}, {M_PM}, {M_PM}) with {n_res} float32 "
+          f"failures {ms:.4f} ms on the device, all healthy {ms_h:.4f} ms ({smi})", flush=True)
+
+
+def workload_phase(ck, td, tc, dev, smi):
+    """`drivers/run_workload.py` at ECoG (with the spatial analysis), HCP and
+    PM2.5-full width, each held to the gates of WORKLOAD_RUNS;
+    `chol_inv_refactor_check`; one `negative_selbo` value and gradient at an
+    HCP and a PM2.5-full batch against float64; 6a/6b/6c at WORKLOAD_QF_SHAPES and gibbs at B = 1000
+    timed.  Returns (the launches of the three runs, timing entries by
+    kernel)."""
+    import importlib.util
+
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.drivers import (
+        run_workload,
+    )
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils import etl
+
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    if not has_mpl:
+        print("workload: matplotlib is not installed: the spatial curves are computed by "
+              "run_workload.spatial_curves and no figure is written")
+    launches = {k: 0 for k in ck.KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv, jax_rmse, jax_ci in WORKLOAD_RUNS:
+            argv = list(argv)
+            if "--spatial-analysis" in argv and has_mpl:
+                argv += ["--out", os.path.join(tmp, "ecog.json")]
+            torch.cuda.reset_peak_memory_stats()
+            ck.reset_launches()
+            t0 = time.perf_counter()
+            out, res = run_workload.run_fit(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(ck.LAUNCHES)
+            for k in ck.KERNELS:
+                launches[k] += counts[k]
+            shown = {k: v for k, v in out.items() if k != "spatial_analysis"}
+            sa = out.get("spatial_analysis")
+            if sa is not None:
+                shown["spatial_analysis"] = {k: v for k, v in sa.items() if not k.endswith("curves")}
+            print(f"workload {name}: {json.dumps(shown)}", flush=True)
+            print(f"workload {name}: trained tilde_ell prior variance "
+                  f"e^{float(res.params.sigma2_tildeell_log):.4f}", flush=True)
+            print(f"workload {name}: {wall:.1f} s wall, peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {counts} ({smi})")
+            losses = np.asarray(res.loss_list)
+            n_bad = int(np.sum(~np.isfinite(losses)))
+            check(WORKLOAD_KEYS <= set(out) and all(counts[k] > 0 for k in TRAIN_KERNELS),
+                  f"workload {name}: the JAX script's keys, every training kernel launched")
+            check(out["rollbacks"] == 0 and out["first_nonfinite_step"] == -1 and n_bad == 0
+                  and out["final_loss"] < losses[0],
+                  f"workload {name}: no rollback, {n_bad} of {losses.size} steps non-finite (first "
+                  f"{out['first_nonfinite_step']}), final loss {out['final_loss']:.6e} below the "
+                  f"first {losses[0]:.6e}")
+            check(out["coverage"] >= 0.9 and out["rmse_test"] <= WORKLOAD_SLACK * jax_rmse
+                  and out["ci_length"] <= WORKLOAD_SLACK * jax_ci,
+                  f"workload {name}: coverage {out['coverage']:.4f} >= 0.9, test RMSE "
+                  f"{out['rmse_test']:.4f} and CI length {out['ci_length']:.4f} at most "
+                  f"{WORKLOAD_SLACK} x the JAX run's {jax_rmse} and {jax_ci}")
+            if sa is not None:
+                G = sa["grid_points"]
+                curves = list(sa["direction_curves"].values()) + list(sa["distance_curves"].values())
+                check(len(sa["direction_curves"]) == 4 and len(sa["distance_curves"]) == 3
+                      and all(len(c) == G and np.all(np.isfinite(c)) for c in curves),
+                      f"workload {name}: 4 direction and 3 distance curves, {G} finite points each")
+                check(len(sa["figures"]) == (2 if has_mpl else 0)
+                      and all(os.path.getsize(f) > 0 for f in sa["figures"]),
+                      f"workload {name}: figures {[os.path.basename(f) for f in sa['figures']]}")
+    chol_inv_refactor_check(ck, dev, smi)
+    hyper = run_workload.WORKLOADS
+    selbo_check(ck, td, tc, "HCP D=15 B=1000", etl.synthetic_hcp()[:2], 15, 1000,
+                hyper["hcp"]["hyperpars"], dev)
+    selbo_check(ck, td, tc, "PM2.5-full D=6 B=1000", etl.synthetic_pm25(full=True)[:2], D_PM, 1000,
+                hyper["pm25"]["hyperpars"], dev)
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    more = {"quadform_diag": [], "quadform_diag_dw": [], "quadform_diag_da": [], "gibbs": []}
+    for G, N in WORKLOAD_QF_SHAPES:
+        A = torch.randn(1, M_PM, N, device=dev, generator=gen)
+        W = 0.1 * torch.randn(1, G, M_PM, M_PM, device=dev, generator=gen).tril()
+        more["quadform_diag"].append(timing_entry(
+            f"quadform_diag (1,{G},{M_PM},{M_PM})x(1,{M_PM},{N})",
+            lambda: ck.quadform_diag_cuda(A, W), lambda: ck.quadform_diag_plain(A, W),
+            lambda: torch.einsum("smn,sgmk->sgnk", A, W).square().sum(-1),
+            qf_bound(1, G, M_PM, N), inner=1))
+        del A, W
+        for n, (row, _, tc_b) in backward_kernels(ck, gen, dev, M_PM, G=G, N=N).items():
+            k_ms, p_ms, l_ms, (b_ms, b_by) = row
+            more[n].append({"at": f"G={G} M={M_PM} N={N}", "ms": k_ms, "plain_ms": p_ms,
+                            "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by, **tc_b})
+        if G == 105:
+            ms = {k: more[k][-1]["ms"] for k in ("quadform_diag_dw", "quadform_diag_da")}
+            print(f"6b at HCP's G = 105: kernel {ms['quadform_diag_dw']:.4f} ms against its einsums "
+                  f"{more['quadform_diag_dw'][-1]['library_ms']:.4f} ms ({smi})")
+    n, m = 1000, M_PM
+    x1 = 4800.0 * torch.rand(n, device=dev, generator=gen)  # the HCP time axis
+    x2 = torch.linspace(0.0, 4800.0, m, device=dev)
+    l1 = torch.exp(5.0 + 0.3 * torch.randn(1, n, device=dev, generator=gen))
+    l2 = torch.exp(5.0 + 0.3 * torch.randn(1, m, device=dev, generator=gen))
+    K, K_ref = ck.gibbs_cuda(x1, x2, l1, l2, 1.0), ck.gibbs_plain(x1, x2, l1, l2, 1.0)
+    torch.cuda.synchronize()
+    check(float(((K - K_ref).abs() - 1e-5 * K_ref.abs() - 1e-30).max()) <= 0.0,
+          f"gibbs (1,{n},{m}) on the HCP axis: rtol 1e-5 against the plain version")
+    more["gibbs"].append(timing_entry(
+        f"gibbs (1,{n},{m})", lambda: ck.gibbs_cuda(x1, x2, l1, l2, 1.0),
+        lambda: ck.gibbs_plain(x1, x2, l1, l2, 1.0), None,
+        bound_ms(4 * (n + m + n + m + n * m), n * m * 15), inner=10))
+    return launches, more
+
+
+# scripts/baseline_parity.py's rows in float32 (the kernels) against its
+# float64 run: the f32 RMSE within BASELINE_RMSE_REL of it, coverage within
+# BASELINE_COVERAGE_ABS (on 100 test points a 0.01 step)
+BASELINE_RMSE_REL = 0.05
+BASELINE_COVERAGE_ABS = 0.03
+SICM_INDUCING, SICM_STEPS = 100, 500
+
+
+def baselines_phase(ck, dev, smi):
+    """`drivers/baseline_parity.py` in float32 with the kernels and in
+    float64, row against row; the exact marginal likelihood and the Titsias
+    bound with their gradients at the float64 ICM fit, kernels against
+    float64 on both kernels; `fit_sicm` on the PM2.5-sub surrogate at the
+    reference's width; cholesky at batch 1 timed.  Returns (the launches of
+    the parity and SICM runs, timing entries by kernel)."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.drivers import (
+        baseline_parity,
+    )
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import (
+        baselines as tb,
+    )
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils import etl, sim
+
+    launches = {k: 0 for k in ck.KERNELS}
+    runs = {}
+    for tag, argv in (("float32", []), ("float64", ["--x64"])):
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        runs[tag] = baseline_parity.run_fits(argv)
+        torch.cuda.synchronize()
+        counts = dict(ck.LAUNCHES)
+        print(f"baseline_parity {tag}: {time.perf_counter() - t0:.1f} s, launches {counts} ({smi})",
+              flush=True)
+        if tag == "float32":
+            for k in ck.KERNELS:
+                launches[k] += counts[k]
+            check(counts["cholesky"] > 0, f"baseline_parity float32 launched cholesky {counts['cholesky']}")
+        else:
+            check(sum(counts.values()) == 0, f"baseline_parity float64 launched {counts}")
+    for r32, r64 in zip(runs["float32"][0], runs["float64"][0]):
+        what = f"baseline {r32['dataset']} {r32['model']}"
+        print(f"{what}: float32 rmse {r32['rmse']:.4f} ci {r32['ci_length']:.4f} coverage "
+              f"{r32['coverage']:.3f}; float64 {r64['rmse']:.4f} / {r64['ci_length']:.4f} / "
+              f"{r64['coverage']:.3f}; GPy (the reference's pickle) {r32['ref_rmse']} / "
+              f"{r32['ref_ci_length']} / {r32['ref_coverage']}")
+        check(abs(r32["rmse"] - r64["rmse"]) <= BASELINE_RMSE_REL * r64["rmse"]
+              and abs(r32["coverage"] - r64["coverage"]) <= BASELINE_COVERAGE_ABS,
+              f"{what}: float32 RMSE within {BASELINE_RMSE_REL:.0%} of float64's, coverage within "
+              f"{BASELINE_COVERAGE_ABS}")
+
+    theta = runs["float64"][1][("low_freq", "ICM")].theta.detach()
+    X_list, Y_list, _, _ = sim.sim_illustration_low_freq(seed=22)
+    xs = np.concatenate([np.ravel(v) for v in X_list])
+    ys = np.concatenate([np.ravel(v) for v in Y_list])
+    ids = np.concatenate([np.full(np.size(v), d) for d, v in enumerate(X_list)])
+    Zs = tb._inducing_init(xs, 20)
+    for kernel in ("exponential", "rbf"):
+        kf = tb._KERNELS[kernel]
+
+        def losses(dtype):
+            t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
+            th = theta.to(dtype).clone().requires_grad_(True)
+            idx = torch.as_tensor(ids, device=dev)
+            exact = tb._icm_train_parts(th, t(xs), t(ys), idx, 2, 1, kf)[2]
+            (bound, *_), _ = tb._sicm_parts(th, t(Zs), torch.arange(20, device=dev) % 2, t(xs),
+                                            t(ys), idx, 2, 1, kf)
+            return [exact.detach(), torch.autograd.grad(exact, th)[0], bound.detach(),
+                    torch.autograd.grad(bound, th)[0]]
+
+        ck.reset_launches()
+        got = losses(torch.float32)
+        torch.cuda.synchronize()
+        launched = dict(ck.LAUNCHES)
+        with plain_versions(ck):
+            plain = losses(torch.float32)
+        ref = losses(torch.float64)
+        check(launched["cholesky"] >= 3 and (kernel != "rbf" or launched["rbf"] >= 3),
+              f"baselines ({kernel}) value and gradient launched {launched}")
+        for what, g, p, r in zip(("ICM nlml", "its gradient", "Titsias bound", "its gradient"),
+                                 got, plain, ref):
+            err_k, err_p = rel_to_max(g, r)[1], rel_to_max(p, r)[1]
+            check(err_k <= 3 * err_p + 1e-4 and bool(torch.isfinite(g).all()),
+                  f"baselines ({kernel}) {what} at the float64 ICM fit vs float64, of max: kernels "
+                  f"{err_k:.3e}, plain {err_p:.3e}; tol 3x plain + 1e-4")
+
+    X, Y, Xt, Yt = etl.synthetic_pm25()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    model = tb.fit_sicm(X, Y, num_inducing=SICM_INDUCING, rank=1, steps=SICM_STEPS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = dict(ck.LAUNCHES)
+    for k in ck.KERNELS:
+        launches[k] += counts[k]
+    means, stds = tb.predict_sicm(model, Xt)
+    yt = np.concatenate([np.ravel(v) for v in Yt])
+    mu = np.concatenate(means)
+    rmse = float(np.sqrt(np.mean((mu - yt) ** 2)))
+    base = float(np.sqrt(np.mean((yt - np.concatenate([np.ravel(v) for v in Y]).mean()) ** 2)))
+    print(f"fit_sicm PM2.5-sub (N=28,768, {SICM_INDUCING} inducing, rank 1, {SICM_STEPS} steps): "
+          f"{fit_s:.2f} s, {1e3 * fit_s / SICM_STEPS:.3f} ms a step, launches {counts} ({smi})")
+    check(bool(np.all(np.isfinite(mu)) and np.all(np.isfinite(np.concatenate(stds))))
+          and rmse < base,
+          f"fit_sicm PM2.5-sub: test RMSE {rmse:.4f} on {yt.size} points below the training "
+          f"mean's {base:.4f}")
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    entries = []
+    for m in (100, 200):
+        K = _spd(gen, dev, 1, m)
+        L = ck.cholesky_cuda(K)
+        witnessed("cholesky", L, ck.cholesky_plain(K), ck.cholesky_plain(K.double()), 1e-6,
+                  f"(1, {m}, {m})")
+        entries.append(timing_entry(
+            f"cholesky (1,{m},{m})", lambda: ck.cholesky_cuda(K), lambda: ck.cholesky_plain(K),
+            lambda: torch.linalg.cholesky_ex(K), bound_ms(4 * (m * (m + 1) // 2 + m * m), m**3 / 3)))
+    return launches, {"cholesky": entries}
+
+
+def sim_parity_phase(ck, dev, smi):
+    """`drivers/sim_parity.py` once at its protocol (M = 20, full batch, lr
+    0.005, 2000 epochs, 1000 draws) on sim_illustration_low_freq(seed=22),
+    held to the assertions of tests/test_dsvi_e2e.py:65-117.  Returns (its
+    launches, no timing entries)."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.drivers import (
+        sim_parity,
+    )
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import (
+        predict as tp,
+    )
+
+    data = sim_parity.load_data("sim_illustration_low_freq")
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    rec, res = sim_parity.run_seed(data, 20, 0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ck.LAUNCHES)
+    replayed = sum(ck.REPLAYED.values())
+    print("sim_parity " + json.dumps({k: v for k, v in rec.items() if k != "elbo_trace"})
+          + f"; {wall:.1f} s, launches {counts} ({replayed} replayed) ({smi})", flush=True)
+    losses = np.asarray(res.loss_list)
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    check(bool(np.all(np.isfinite(losses))) and last < 0.5 * first and replayed > 0
+          and all(counts[k] > 0 for k in TRAIN_KERNELS),
+          f"sim_parity: {len(losses)} finite losses through the graphs, mean of the first 10 "
+          f"{first:.4f}, of the last 10 {last:.4f} (must halve)")
+    check(res.elbo_trace[-1] > res.elbo_trace[0],
+          f"sim_parity ELBO rises: {res.elbo_trace[0]:.2f} -> {res.elbo_trace[-1]:.2f}")
+    p = res.params
+    check(float(p.length_scales_L0_log) == 2.0 and float(p.length_scales_L1_log) == 2.0
+          and float(p.length_scales_tildeell_log) == 0.0 and float(p.sigma2_err_log) != -2.0,
+          f"sim_parity: frozen length scales exact, sigma2_err_log moved ({float(p.sigma2_err_log):.4f})")
+    Xt_list, Yt_list = data[2], data[3]
+    y_test = np.concatenate([np.ravel(yt) for yt in Yt_list])
+    ys = tp.sample_Y(p, res.Z, Xt_list, n_sample=50, seed=0)[0].cpu().numpy()
+    rmse = float(np.sqrt(np.mean((ys.mean(0) - y_test) ** 2)))
+    check(rmse < float(np.std(y_test)) and rec["rmse"] < float(np.std(y_test)),
+          f"sim_parity: sample_Y x50 rmse {rmse:.4f}, the protocol's x1000 {rec['rmse']:.4f} < "
+          f"std(y_test) {np.std(y_test):.4f}")
+    est = tp.predict_Y(p, res.Z, Xt_list).cpu().numpy()
+    ys400 = tp.sample_Y(p, res.Z, Xt_list, n_sample=400, seed=1)[0].cpu().numpy()
+    corr = float(np.corrcoef(est, ys400.mean(0))[0, 1])
+    check(corr > 0.9, f"sim_parity: predict_Y vs mean of 400 draws: corr {corr:.4f} > 0.9")
+    return counts, {}
+
+
+def realdata_phases(ck, td, tc, dev, smi):
+    """The three phases above in order, each timed.  Returns (their
+    launches, timing entries by kernel)."""
+    launches = {k: 0 for k in ck.KERNELS}
+    more = {}
+    for name, phase in (("workload_phase", lambda: workload_phase(ck, td, tc, dev, smi)),
+                        ("baselines_phase", lambda: baselines_phase(ck, dev, smi)),
+                        ("sim_parity_phase", lambda: sim_parity_phase(ck, dev, smi))):
+        t0 = time.perf_counter()
+        counts, entries = phase()
+        print(f"{name} {time.perf_counter() - t0:.1f} s; launches {counts}", flush=True)
+        for k in ck.KERNELS:
+            launches[k] += counts[k]
+        for k, rows in entries.items():
+            more[k] = more.get(k, []) + rows
+    return launches, more
+
+
+def realdata_main() -> int:
+    """The workload, baselines and sim_parity phases alone (with the build):
+    python3 -u -c 'import sys, chip_smoke; sys.exit(chip_smoke.realdata_main())'"""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer import dsvi
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import cnmgp
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    ck.build()
+    launches, more = realdata_phases(ck, dsvi, cnmgp, torch.device("cuda"), smi)
+    print(json.dumps({"launches": launches, "more": more}))
+    return 1 if FAILURES else 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2594,11 +3060,14 @@ def main() -> int:
     t0 = time.perf_counter()
     smc_launched, smc_more = fb_smc(ck, dev, smi)
     print(f"SMC phase {time.perf_counter() - t0:.1f} s; launches {smc_launched}")
-    for name, entries in list(smc_more.items()) + list(pred_more.items()):
-        more[name] = more[name] + entries
+    t0 = time.perf_counter()
+    rd_launched, rd_more = realdata_phases(ck, dsvi, cnmgp, dev, smi)
+    print(f"real-data phases {time.perf_counter() - t0:.1f} s; launches {rd_launched}")
+    for name, entries in list(smc_more.items()) + list(pred_more.items()) + list(rd_more.items()):
+        more[name] = more.get(name, []) + entries
     for k in ck.KERNELS:
         launches[k] += (fb_launched[k] + pred_launched[k] + sn_launched[k] + ch_launched[k]
-                        + smc_launched[k])
+                        + smc_launched[k] + rd_launched[k])
     for name, ((kern, plain, lib, inner, (b_ms, b_by)), _) in fb.items():
         k_ms = device_ms(kern, inner=inner)
         p_ms = device_ms(plain, inner=inner)
@@ -2625,12 +3094,13 @@ def main() -> int:
         times[n] = backward[n][0]
         tc_bounds[n] = backward[n][2]
         k_ms, p_ms, l_ms, (b_ms, b_by) = backward200[n][0]
-        more[n] = [{"at": f"M={M_ECOG200}", "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+        earlier = [{"at": f"M={M_ECOG200}", "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                     "bound_ms": b_ms, "bound_by": b_by, **backward200[n][2]}]
         k_ms, p_ms, l_ms, (b_ms, b_by) = backward_pm[n][0]
-        more[n].append({"at": f"PM2.5-sub G={D_PM * (D_PM - 1) // 2} M={M_PM} N={B_PM}",
+        earlier.append({"at": f"PM2.5-sub G={D_PM * (D_PM - 1) // 2} M={M_PM} N={B_PM}",
                         "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
                         "bound_by": b_by, **backward_pm[n][2]})
+        more[n] = earlier + more.get(n, [])
     kernels = []
     for n, r, e in rows:
         k_ms, p_ms, l_ms, (b_ms, b_by) = times[n]

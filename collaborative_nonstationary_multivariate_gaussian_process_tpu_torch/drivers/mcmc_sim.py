@@ -12,14 +12,16 @@ JSON line with the JAX script's keys.
         [--N 100] [--chains 4] [--warmup 400] [--samples 400] [--sampler nuts|hmc|chees] [--cpu]
 
 Runs on the card unless `--cpu` is given.  The JAX script's
-`--segment-iters` (its TPU worker's dispatch budget) has no counterpart,
-and its `--plots-dir` waits for the port of `utils/visualization.py`.
+`--segment-iters` (its TPU worker's dispatch budget) has no counterpart.
+`--plots-dir` (matplotlib needed) writes the true-vs-inferred overlays of
+the lengthscale and correlation processes.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from typing import NamedTuple, Optional
 
@@ -36,9 +38,10 @@ from ..parallel.sharded_mcmc import effective_sample_size, potential_scale_reduc
 from ..utils.empirical import local_estimation, smooth
 from ..utils.posterior_analysis import lvecs_to_corr, samples2quantiles
 from ..utils.sim import sim_mnts
+from ..utils.visualization import _plt, plot_process_overlay
 
 __all__ = ["HYPERS", "CHEES_CHUNK", "parse_args", "Study", "svc_problem", "svc_density",
-           "centered_draws", "recovery", "run_study", "run", "main"]
+           "centered_draws", "recovery_bands", "recovery", "run_study", "run", "main"]
 
 # the hyperparameters of the reference's simulation study (sim.py:208)
 HYPERS = dict(mu_tilde_l=-3.0, alpha_tilde_l=3.0, beta_tilde_l=0.4, mu_L=0.0, alpha_L=5.0,
@@ -50,8 +53,7 @@ CHEES_CHUNK = 100
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
         description=__doc__.split("\n\n")[0],
-        epilog="Not ported: the JAX script's --segment-iters (its TPU worker's dispatch budget) "
-               "and --plots-dir (it needs utils/visualization.py).")
+        epilog="Not ported: the JAX script's --segment-iters (its TPU worker's dispatch budget).")
     p.add_argument("--N", type=int, default=100)
     p.add_argument("--chains", type=int, default=4)
     p.add_argument("--warmup", type=int, default=400)
@@ -64,6 +66,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="use the centered parameterization (default: whitened)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default=None)
+    p.add_argument("--plots-dir", default=None,
+                   help="write true-vs-inferred overlay PNGs of the lengthscale/correlation "
+                        "processes here (reference synthetic_plot.py:101-142)")
     p.add_argument("--steady", action="store_true",
                    help="run the sampler twice and report the second run's samples/s")
     p.add_argument("--cpu", action="store_true", help="run on the CPU (default: the CUDA card)")
@@ -140,15 +145,22 @@ def centered_draws(prob: dict, samples: np.ndarray) -> np.ndarray:
     return flat.reshape(samples.shape)
 
 
-def recovery(prob: dict, samples: np.ndarray) -> dict:
-    """tilde_l and correlation RMSE and coverage against the truth from
-    draws (C, S, dim) (run_mcmc_sim.py:253-265)."""
+def recovery_bands(prob: dict, samples: np.ndarray):
+    """(true tilde_l, its 2.5/50/97.5% draw quantiles (3, N), true
+    correlation, its quantiles) from draws (C, S, dim)."""
     N, M, T = prob["N"], prob["M"], prob["T"]
     pooled = centered_draws(prob, samples).reshape(-1, samples.shape[-1])
     true_tl = np.log(prob["true_l"])
     true_corr = lvecs_to_corr(prob["true_L_vecs"], N, M, constrained=True)[:, 0, 1]
     tl_q = samples2quantiles(pooled[:, :N])
     corr_q = samples2quantiles(lvecs_to_corr(pooled[:, N:N + N * T], N, M)[:, :, 0, 1])
+    return true_tl, tl_q, true_corr, corr_q
+
+
+def recovery(prob: dict, samples: np.ndarray) -> dict:
+    """tilde_l and correlation RMSE and coverage against the truth from
+    draws (C, S, dim) (run_mcmc_sim.py:253-265)."""
+    true_tl, tl_q, true_corr, corr_q = recovery_bands(prob, samples)
     return dict(
         rmse_tilde_l=float(np.sqrt(np.mean((tl_q[1] - true_tl) ** 2))),
         rmse_corr=float(np.sqrt(np.mean((corr_q[1] - true_corr) ** 2))),
@@ -203,6 +215,8 @@ def run_study(args, device=None, dtype=DEFAULT_DTYPE, progress=None):
     Returns (the JSON dict, `Study`)."""
     if not isinstance(args, argparse.Namespace):
         args = parse_args(args)
+    if args.plots_dir:
+        _plt()  # the figures need matplotlib: fail before sampling, not after
     dev = resolve_device("cpu" if args.cpu and device is None else device)
     # dense-Cholesky MCMC is precision-sensitive: no TF32 in its products
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -248,6 +262,14 @@ def run_study(args, device=None, dtype=DEFAULT_DTYPE, progress=None):
     if steady_rate is not None:
         out["steady_samples_per_s"] = steady_rate
         out["steady_ess_per_s"] = float(np.median(ess) / (total_draws / steady_rate))
+    if args.plots_dir:
+        true_tl, tl_q, true_corr, corr_q = recovery_bands(prob, draws.numpy())
+        for name, ylabel, true, q in (("log_lengthscale", "log lengthscale", true_tl, tl_q),
+                                      ("correlation", "correlation", true_corr, corr_q)):
+            plot_process_overlay(prob["x"], true, q[1], quantiles=q[[0, 2]], ylabel=ylabel,
+                                 save_path=os.path.join(args.plots_dir,
+                                                        f"nuts_recovery_{name}_N{args.N}.png"))
+        out["plots"] = sorted(os.listdir(args.plots_dir))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f)

@@ -550,11 +550,23 @@ def cholesky_nan(K):
     return torch.where(failed, nan_lower, L), failed
 
 
-def chol_inv_plain(K):
+def chol_inv_plain(K, route=None):
     """(L, L^-1) of SPD K (..., M, M) in plain PyTorch.  A member whose
     factorization fails gets NaN in L's lower triangle and in all of L^-1,
-    as the JAX `chol_tri_inv` gives."""
+    as the JAX `chol_tri_inv` gives.
+
+    A float32 member whose float32 factorization fails is factored again in
+    float64 arithmetic, its L rounded to float32 (the kernel's resident
+    route does the same, so this holds where `chol_inv_route(M, route)` is
+    "resident"): near-singular prior grams whose float32 rounding is still
+    positive-definite keep a finite factor.  L^-1 is solved in K's dtype
+    from the factor either way.  Both factorizations always run, so the
+    call waits on no host read and can be captured in a CUDA graph."""
     L, failed = cholesky_nan(K)
+    if K.dtype == torch.float32 and chol_inv_route(K.shape[-1], route) == "resident":
+        L64, failed64 = cholesky_nan(K.double())
+        L = torch.where(failed, L64.to(K.dtype), L)
+        failed = failed & failed64
     eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
     safe = torch.where(failed, eye, L)
     Linv = torch.linalg.solve_triangular(safe, eye.expand_as(K), upper=False)
@@ -575,12 +587,14 @@ def chol_inv_route(m: int, route=None) -> str:
 def chol_inv_cuda(K, route=None):
     """(L, L^-1) through `csrc/chol_inv.cu` for a CUDA float32 K (..., M,
     M), M <= max_m("chol_inv"), with the failure semantics of
-    `chol_inv_plain`, on the route `chol_inv_route(M, route)` picks (the
+    `chol_inv_plain` (the resident route refactors a float32 failure in
+    float64, the multi-CTA route does not), on the route
+    `chol_inv_route(M, route)` picks (the
     resident route takes M <= ~240; the multi-CTA route pads M to a multiple
     of 64 in a workspace unless it is one); `chol_inv_plain` for a CPU
     tensor."""
     if not K.is_cuda:
-        return chol_inv_plain(K)
+        return chol_inv_plain(K, route)
     Kb, m, device = _square_batch("chol_inv", K)
     route = chol_inv_route(m, route)
     nb = Kb.shape[0]

@@ -370,8 +370,11 @@ def chol_tri_inv(K):
     """(L, L^{-1}) of SPD K (..., M, M), through the fused kernel
     (`cuda_kernels.chol_inv_cuda`; the plain version off `use_kernel`'s
     rule), differentiable with the matmul-only
-    backward.  A member that is not numerically positive-definite gets NaN
-    factors (and NaN gradients, which the training step zeroes)."""
+    backward.  A float32 member whose float32 factorization fails is factored
+    in float64 arithmetic (`chol_inv_plain`); a member that is not
+    positive-definite even so gets NaN factors (and NaN gradients, which the
+    training step zeroes).  The JAX `chol_tri_inv` gives NaN at the first
+    float32 failure."""
     return _CholTriInv.apply(K)
 
 

@@ -103,3 +103,53 @@ def test_chol_tri_inv_matches_jax_in_float64(batch, m, non_pd):
 
     g_ref = np.asarray(jax.grad(f)(jnp.asarray(K[good])))
     assert_close(g, g_ref, rtol=1e-8, atol=1e-8 * float(np.abs(g_ref).max()))
+
+
+# Log variances of the tilde_ell prior gram at the HCP width (Z on
+# linspace(0, 4799, 100), length scale e^5, + JITTER): as rounded to float32
+# the grams are positive-definite through e^6.5 on the CPU (condition up to
+# ~2e8, above float32's 1/eps, so float32 factorizations fail on some of
+# them) and indefinite at e^8.
+TRAINED_S2_LOGS = (5.0, 5.8, 6.0, 6.2, 6.4, 6.5, 8.0)
+
+
+def _trained_prior_grams():
+    z = np.linspace(0.0, 4799.0, 100).astype(np.float32)
+    d2 = torch.as_tensor((z[:, None] - z[None, :]) ** 2)
+    ls = torch.exp(torch.tensor(5.0))
+    return torch.stack([torch.exp(torch.tensor(s, dtype=torch.float32))
+                        * torch.exp(-d2 * (0.5 / (ls * ls))) + JITTER * torch.eye(100)
+                        for s in TRAINED_S2_LOGS])
+
+
+def test_chol_inv_plain_refactors_a_float32_failure_in_float64():
+    """A float32 member whose float32 factorization fails and whose float64
+    one does not gets the float64 factor rounded to float32, and L^-1 solved
+    from it in float32, where the JAX f32 `chol_tri_inv` gives NaN; the
+    factor equals the JAX float64 factor of the same float32 input (rtol
+    1e-6 of max: float32's rounding of either float64 factor).  The other
+    members keep their float32 factor.  A member
+    that fails in float64 too stays NaN.  On the multi-CTA route, which
+    does not refactor, a float32 failure stays NaN."""
+    K = _trained_prior_grams()
+    L, Linv = ck.chol_inv_cuda(K)
+    f32_failed = torch.linalg.cholesky_ex(K)[1] != 0
+    L_jax32 = np.asarray(jl.chol_tri_inv(jnp.asarray(K.numpy()))[0])
+    L_jax64 = np.asarray(jl.chol_tri_inv(jnp.asarray(K.double().numpy()))[0])
+    pd = np.isfinite(L_jax64).all(axis=(1, 2))
+    assert pd[0] and not pd[-1]
+    assert (f32_failed.numpy() & pd).any() and (~np.isfinite(L_jax32).all(axis=(1, 2)) & pd).any()
+    assert torch.isfinite(L[pd]).all() and torch.isfinite(Linv[pd]).all()
+    rescued = f32_failed.numpy() & pd
+    assert_close(L[rescued], L_jax64[rescued].astype(np.float32), rtol=1e-6,
+                 atol=1e-6 * float(np.abs(L_jax64[rescued]).max()))
+    kept = ~f32_failed
+    assert torch.equal(L[kept], torch.linalg.cholesky_ex(K[kept])[0])
+    eye = torch.eye(100)
+    assert torch.equal(Linv[pd], torch.linalg.solve_triangular(L[pd], eye.expand(int(pd.sum()), -1, -1),
+                                                               upper=False))
+    lower = torch.ones(100, 100, dtype=torch.bool).tril()
+    assert torch.isnan(L[-1][lower]).all() and (L[-1][~lower] == 0).all()
+    assert torch.isnan(Linv[-1]).all()
+    L_multi, _ = ck.chol_inv_cuda(K, "multi_cta")
+    assert torch.equal(torch.isnan(L_multi).flatten(1).any(1), f32_failed)

@@ -761,6 +761,37 @@ def test_chol_inv_failed_member_on_each_route(dev, route, m, where):
     assert torch.equal(L[[0, 2]], Lg) and torch.equal(Linv[[0, 2]], Linvg)
 
 
+def test_chol_inv_refactors_a_float32_failure_in_float64(dev):
+    """The tilde_ell prior gram at HCP width (Z on linspace(0, 4799, 100),
+    length scale e^5, + 1e-4) at trained variances e^5-e^6.5, which float32
+    factorizations fail on some of (cuSOLVER's among them) and whose float32
+    rounding stays positive-definite up to about e^6.3-6.5 (the card's exp
+    rounds otherwise than the CPU's), and at e^8, indefinite: the resident
+    route refactors a float32 failure in float64,
+    as the plain version does, so every member the float64 factorization
+    takes is finite and held against float64 as any other (3x the plain
+    version's error + 1e-6 of max), and only the indefinite one is NaN."""
+    z = torch.linspace(0.0, 4799.0, 100, device=dev)
+    d2 = (z[:, None] - z[None, :]) ** 2
+    ls = torch.exp(torch.tensor(5.0, device=dev))
+    s2_logs = (5.0, 5.8, 6.0, 6.2, 6.4, 6.5, 8.0)
+    K = torch.stack([torch.exp(torch.tensor(s, device=dev)) * torch.exp(-d2 * (0.5 / (ls * ls)))
+                     + 1e-4 * torch.eye(100, device=dev) for s in s2_logs])
+    before = dict(ck.LAUNCHES)
+    L, Linv = ck.chol_inv_cuda(K)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["chol_inv"] == before["chol_inv"] + 1
+    f32_failed = torch.linalg.cholesky_ex(K)[1] != 0
+    pd = torch.linalg.cholesky_ex(K.double())[1] == 0
+    assert bool(pd[0]) and not bool(pd[-1]) and bool((f32_failed & pd).any())
+    L_ref, Linv_ref = ck.chol_inv_plain(K)
+    assert torch.equal(torch.isnan(L), torch.isnan(L_ref))
+    assert torch.equal(torch.isnan(Linv), torch.isnan(Linv_ref))
+    assert torch.isfinite(L[pd]).all() and torch.isfinite(Linv[pd]).all()
+    assert torch.isnan(Linv[~pd]).all()
+    _witnessed_chol_inv(K[pd], L[pd], Linv[pd])
+
+
 @pytest.mark.parametrize("route", sorted(ck.CHOL_INV_ROUTES))
 @pytest.mark.parametrize("m", [13, 100, 200])
 def test_chol_inv_never_reads_above_the_diagonal(dev, route, m):
@@ -1126,3 +1157,62 @@ def test_prediction_on_the_card_launches_the_kernels(dev, family):
     err_k = float((res["kernels"].double() - ref).abs().max())
     err_p = float((res["plain"].double() - ref).abs().max())
     assert err_k <= 3 * err_p + 1e-4 * scale, (err_k, err_p, scale)
+
+
+def test_run_workload_on_the_card_launches_the_training_kernels(dev, tmp_path):
+    """`drivers/run_workload.py` at the PM2.5-sub surrogate's width with M =
+    8 and one epoch: the JAX script's keys, finite, every training kernel
+    launched."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.drivers import (
+        run_workload,
+    )
+
+    ck.reset_launches()
+    out = run_workload.run(["pm25", "--M", "8", "--itnum", "1", "--batchsize", "2000",
+                            "--n-sample", "4"])
+    torch.cuda.synchronize()
+    assert all(ck.LAUNCHES[k] > 0 for k in TRAIN_KERNELS), dict(ck.LAUNCHES)
+    assert out["first_nonfinite_step"] == -1 and out["rollbacks"] == 0
+    for k in ("final_loss", "rmse_test", "ci_length", "coverage", "steps_per_s"):
+        assert np.isfinite(out[k]), k
+
+
+@pytest.mark.parametrize("kernel", ["exponential", "rbf"])
+def test_baselines_on_the_card_match_plain(dev, kernel):
+    """The exact marginal likelihood (n = 100) and the sparse ICM bound (N =
+    400, 50 inducing points) with their gradients: cholesky (and rbf)
+    launched, the kernels' f32 value and gradient at most 3x the plain f32
+    error of float64 + 1e-4 of max."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import (
+        baselines as tb,
+    )
+
+    r = np.random.default_rng(5)
+    x = np.sort(r.random(400))
+    y = np.sin(6 * x) + 0.1 * r.standard_normal(400)
+    idx = np.repeat([0, 1], 200)
+    theta = np.array([0.1, -1.5, -2.0, 0.5, -0.3, -1.0, -0.7])
+    Z = np.linspace(0.01, 0.99, 50)
+    kf = tb._KERNELS[kernel]
+
+    def losses(dtype):
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
+        th = t(theta).requires_grad_(True)
+        exact = tb._nlml(th[:3], t(x[:100]), t(y[:100]), kf)
+        (bound, *_), _ = tb._sicm_parts(th, t(Z), torch.arange(50, device=dev) % 2, t(x), t(y),
+                                        torch.as_tensor(idx, device=dev), 2, 1, kf)
+        (g_exact,) = torch.autograd.grad(exact, th)
+        (g_bound,) = torch.autograd.grad(bound, th)
+        return [exact.detach(), g_exact, bound.detach(), g_bound]
+
+    ck.reset_launches()
+    got = losses(torch.float32)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["cholesky"] >= 3 and (kernel != "rbf" or ck.LAUNCHES["rbf"] >= 3)
+    with _plain_versions():
+        plain = losses(torch.float32)
+    ref = losses(torch.float64)
+    for g, p, w in zip(got, plain, ref):
+        err_k = float((g.double() - w).abs().max() / w.abs().max())
+        err_p = float((p.double() - w).abs().max() / w.abs().max())
+        assert bool(torch.isfinite(g).all()) and err_k <= 3 * err_p + 1e-4, (err_k, err_p)

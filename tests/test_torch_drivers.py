@@ -1,8 +1,9 @@
-"""The port's drivers of `scripts/run_model_comparison.py` and
-`scripts/run_mcmc_sim.py --sampler chees`, on the CPU at tiny size: each
-`run` returns the JAX script's JSON keys with finite values; and at
-float64 each of the model comparison's six closures equals the JAX
-script's (rebuilt from the JAX package's functions in
+"""The port's drivers of `scripts/run_model_comparison.py`,
+`scripts/run_mcmc_sim.py --sampler chees` (and its `--plots-dir`),
+`scripts/sim_parity.py` and `scripts/baseline_parity.py`, on the CPU at
+tiny size: each `run` returns the JAX script's JSON keys with finite
+values; and at float64 each of the model comparison's six closures equals
+the JAX script's (rebuilt from the JAX package's functions in
 `tests/jax_model_comparison.py`) at the same particles."""
 
 import json
@@ -15,8 +16,10 @@ import pytest
 import torch
 
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.drivers import (
+    baseline_parity,
     mcmc_sim,
     model_comparison,
+    sim_parity,
 )
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils.sim import sim_mnts
 from jax_model_comparison import jax_models
@@ -63,6 +66,54 @@ def test_mcmc_sim_chees_runs_at_tiny_size():
     assert MCMC_KEYS | {"steady_samples_per_s", "steady_ess_per_s"} == set(out)
     assert out["sampler"] == "chees" and out["draws"] == 40
     _finite(out)
+
+
+def test_mcmc_sim_plots_dir_writes_the_overlays(tmp_path):
+    plots = tmp_path / "plots"
+    out = mcmc_sim.run(["--N", "8", "--warmup", "10", "--samples", "10", "--sampler", "chees",
+                        "--cpu", "--seed", "1", "--plots-dir", str(plots)])
+    names = ["nuts_recovery_correlation_N8.png", "nuts_recovery_log_lengthscale_N8.png"]
+    assert out["plots"] == names and sorted(p.name for p in plots.iterdir()) == names
+    assert all((plots / n).stat().st_size > 0 for n in names)
+
+
+# scripts/sim_parity.py:93-111 and scripts/baseline_parity.py:83-104
+SIM_PARITY_SUMMARY = {"data", "M", "kl_mode", "n_seeds", "rmse_mean", "rmse_std", "ci_mean",
+                      "cov_mean"}
+SIM_PARITY_RESULT = {"seed", "rmse", "ci_length", "coverage", "elbo_trace", "wallclock_s"}
+BASELINE_ROW = {"dataset", "model", "rmse", "ci_length", "coverage", "ref_rmse", "ref_ci_length",
+                "ref_coverage"}
+
+
+def test_sim_parity_runs_at_tiny_size(tmp_path, monkeypatch):
+    monkeypatch.setattr(sim_parity, "N_SAMPLE", 20)
+    out_file = tmp_path / "sim.json"
+    out = sim_parity.run(["--M", "5", "--itnum", "200", "--seeds", "0", "1",
+                          "--cpu", "--x64", "--out", str(out_file), "--plots-dir",
+                          str(tmp_path / "figs")])
+    assert set(out["summary"]) == SIM_PARITY_SUMMARY and out["summary"]["n_seeds"] == 2
+    assert [set(r) for r in out["results"]] == [SIM_PARITY_RESULT] * 2
+    _finite({k: v for k, v in out["summary"].items() if k not in ("data", "kl_mode")})
+    for r in out["results"]:
+        assert len(r["elbo_trace"]) >= 2 and all(map(math.isfinite, r["elbo_trace"]))
+    assert json.loads(out_file.read_text())["summary"] == out["summary"]
+    figs = sorted(p.name for p in (tmp_path / "figs").iterdir())
+    assert figs == [f"Pos_pred_sim_illustration_low_freq_y{d}_seed0_DSVI_true.png" for d in (1, 2)]
+
+
+def test_baseline_parity_runs_at_tiny_size(tmp_path, monkeypatch):
+    monkeypatch.setattr(baseline_parity, "IGPR_STEPS", 5)
+    monkeypatch.setattr(baseline_parity, "ICM_STEPS", 5)
+    out_file = tmp_path / "rows.json"
+    rows = baseline_parity.run(["--cpu", "--x64", "--out", str(out_file)])
+    assert [(r["dataset"], r["model"]) for r in rows] == [
+        (d, m) for d in baseline_parity.DATASETS for m in ("IGPR", "ICM")]
+    for r in rows:
+        assert set(r) == BASELINE_ROW
+        _finite({k: v for k, v in r.items() if k not in ("dataset", "model")})
+        assert (r["ref_rmse"], r["ref_ci_length"], r["ref_coverage"]) == baseline_parity.REFERENCE[
+            (r["dataset"], r["model"])]
+    assert json.loads(out_file.read_text()) == rows
 
 
 def _draws(dim, n=5, seed=0):

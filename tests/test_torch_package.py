@@ -22,11 +22,15 @@ from collaborative_nonstationary_multivariate_gaussian_process_tpu.utils import 
 from collaborative_nonstationary_multivariate_gaussian_process_tpu.utils import sim as jsim
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch import config as tconfig
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.drivers import (
+    baseline_parity,
     mcmc_sim,
     model_comparison,
+    run_workload,
+    sim_parity,
 )
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer.chees import run_chees
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer.smc import run_smc
+from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import baselines as tb
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import cnmgp as tc
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import predict as tp
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import (
@@ -59,6 +63,9 @@ def test_importing_the_port_loads_no_jax():
         f"import {PORT}.drivers.mcmc_sim, {PORT}.drivers.model_comparison\n"
         f"import {PORT}.parallel.sharded_mcmc, {PORT}.utils.empirical\n"
         f"import {PORT}.utils.posterior_analysis, {PORT}.models.prediction\n"
+        f"import {PORT}.utils.etl, {PORT}.utils.visualization, {PORT}.models.baselines\n"
+        f"import {PORT}.drivers.run_workload, {PORT}.drivers.baseline_parity\n"
+        f"import {PORT}.drivers.sim_parity\n"
         f"bad = sorted(m for m in sys.modules\n"
         f"             if m.split('.')[0] in ('jax', 'jaxlib', 'sklearn', '{JAX_PACKAGE}'))\n"
         "assert not bad, bad\n"
@@ -115,6 +122,17 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
         tpred.snmgp_predmap(snmgp_map, Y, x, xs)
     assert tpred.svc_predsample(svc_hists, Y, x, xs, device="cpu").device.type == "cpu"
     assert tpred.snmgp_predmap(snmgp_map, Y, x, xs, device="cpu").shape == (3, 1, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_workload.run(["pm25", "--M", "4", "--itnum", "1", "--batchsize", "5000", "--n-sample", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        baseline_parity.run([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sim_parity.run(["--M", "4", "--itnum", "1"])
+    X_b, Y_b = [np.linspace(0, 1, 5)] * 2, [np.zeros(5), np.ones(5)]
+    for fit in (tb.fit_igpr, tb.fit_icm, tb.fit_sgpr, tb.fit_sicm):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fit(X_b, Y_b, steps=1)
+        assert fit(X_b, Y_b, steps=1, device="cpu") is not None
     pos, _ = run_chees(lp, q0, torch.Generator(), num_warmup=2, num_samples=2, device="cpu")
     assert pos.device.type == "cpu" and pos.shape == (2, 2, 3)
     _, info = run_smc(lp, lp, q0, torch.Generator(), num_leapfrog=2, device="cpu")
