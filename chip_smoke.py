@@ -82,7 +82,7 @@ the matvec kernel): value and gradient against float64, a short HMC run,
 and `mvn_logpdf_kron` timed on both routes at MN = 1024 and 2048; then
 `scripts/run_mcmc_sim.py --sampler chees` through the port's driver
 (`drivers/mcmc_sim.py`: the same SVC study by ChEES-HMC from its
-overdispersed start, its 400 samples cut to 200, see CHEES_WARMUP):
+overdispersed start, its 400 samples cut to 120, see CHEES_WARMUP):
 acceptance, trajectory length, R-hat and recovery against bounds from the
 JAX package's own run, the log-posterior and gradient at the start
 against float64, and the DIC of the draws; and
@@ -103,12 +103,26 @@ against float64; `negative_selbo` at an HCP and a PM2.5-full batch
 against float64 at three row orders;
 6a/6b/6c at (G, N) = (105, 1000) and (15, 1000) and gibbs (1, 1000, 100)
 timed; `scripts/baseline_parity.py` through `drivers/baseline_parity.py`
-in float32 with the kernels against its float64 run, the baselines'
+in float32 with the kernels against its float64 run (its Adam steps cut 10x
+in both, BASELINE_STEP_CUT), the baselines'
 likelihoods and gradients against float64, `fit_sicm` at PM2.5-sub width
 and cholesky at (1, 100, 100) and (1, 200, 200) timed; and
 `scripts/sim_parity.py` once at its protocol, held to the assertions of
-`tests/test_dsvi_e2e.py`.  Each phase prints its seconds, and the script
-its total.  The second-to-last line is a JSON object with one entry per kernel (its
+`tests/test_dsvi_e2e.py`.  Then the multi-device layer
+(`multidevice_phase`): the native host library against NumPy;
+`inference(mesh=make_mesh())` on an NCCL group of one rank at ECoG width,
+the all-reduce captured in the step graph, bit for bit the run without a
+mesh, and the two graphs' steps/s in turns; two gloo ranks spawned on the
+card (`drivers/multidevice_check.py`): a data-parallel ECoG step of 256
+rows a rank, its gradient against float64 and its all-reduce's share of
+the step, `run_chees_sharded` on the SVC study (cut to 40 + 10 + 20),
+`run_smc_sharded` on the three models of the comparison (each log Z in its
+band) and a short `run_nuts_sharded`; `graft_entry.dryrun_multichip(2)`
+and `entry()`; the training kernels at one rank's shapes and chol_inv and
+gibbs at SMC's 256 particles a rank, timed; a `utils.profiling` trace of
+three ECoG steps, `print_mem`, and the FLOPs and MFU of an ECoG step.  The
+ranks' kernel launches come back with their results and count in the
+kernels line.  Each phase prints its seconds, and the script its total.  The second-to-last line is a JSON object with one entry per kernel (its
 other shapes and routes under "more"); the last
 line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -157,6 +171,8 @@ FB_FULL = (400, 400)
 MAP_LR, MAP_STEPS = 0.2, 2000
 # the SNMGP check of the Kronecker eigen route: MN = 2 x 1024 > KRON_DENSE_MAX_DIM
 SNMGP_N = 1024
+# its short HMC run's warmup and samples (once 20 + 20), held finite
+SNMGP_HMC = 10
 # the Cholesky's shapes on the path, (batch, M): the dense NUTS metric of the
 # SVC study, the SVC and SNMGP whitening factors, the dense Kronecker
 # route's size; and the sizes at batch 2 where its two routes are compared
@@ -321,16 +337,6 @@ def profile_breakdown(fn, top: int = 8, watch=()) -> None:
         hits = [e for e in ranked if w in e.key]
         print(f"profile:   {w}: " + ("; ".join(f"{e.device_time_total / 1e3:.3f} ms x{e.count} "
                                                f"{e.key[:60]}" for e in hits) or "no kernel ran"))
-
-
-@contextmanager
-def plain_versions(ck, names=None):
-    """Route every kernel wrapper (or the named ones) to its plain PyTorch
-    version."""
-    with ExitStack() as stack:
-        for name in ck.KERNELS if names is None else names:
-            stack.enter_context(mock.patch.object(ck, f"{name}_cuda", getattr(ck, f"{name}_plain")))
-        yield
 
 
 @contextmanager
@@ -577,10 +583,13 @@ def rbf_shapes(ck, gen, dev):
 
 
 def ecog_lists():
-    """The ECoG-width synthetic data (scripts/bench_ecog.py:46-52): 78
-    outputs, each on the time axis 0..799, y = sin(t / 40)."""
-    t = np.arange(800.0)
-    return [t] * D_ECOG, [np.sin(t / 40.0)] * D_ECOG
+    """The ECoG-width synthetic data (`drivers/multidevice_check.ecog_lists`):
+    78 outputs, each on the time axis 0..799, y = sin(t / 40)."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.drivers import (
+        multidevice_check,
+    )
+
+    return multidevice_check.ecog_lists(D_ECOG)
 
 
 def pm25_data(dev):
@@ -638,7 +647,7 @@ def training_rates(ck, td, tc, name, data, D, B):
     x, y, idx, Z = data
     res = {}
     for route in ("kernels", "plain", "plain", "kernels"):
-        with plain_versions(ck) if route == "plain" else ExitStack():
+        with ck.plain_versions() if route == "plain" else ExitStack():
             med, rate, losses = time_steps(step_closure(td, tc, x, y, idx, Z, D, B))
         check(bool(torch.isfinite(losses).all()), f"{name} {route}: {TRAIN_STEPS} finite losses")
         res.setdefault(route, []).append((med, rate))
@@ -647,35 +656,23 @@ def training_rates(ck, td, tc, name, data, D, B):
     return res
 
 
-def ecog_problem(tc, x, y, idx, Z, gen):
-    """The ECoG gradient check's problem: `init_params` with the
-    lengthscales set to 40 (dense priors), and one batch, its noise and two
-    more row orders drawn from `gen`.  Returns grads(dtype, order) ->
-    (loss, every parameter's gradient)."""
-    dev = x.device
-    params = tc.init_params(torch.Generator(device=dev).manual_seed(0), D_ECOG, M_ECOG,
-                            device=dev)
-    log40 = torch.tensor(math.log(40.0), device=dev)
-    params = params._replace(mu_v=torch.full((M_ECOG,), math.log(40.0), device=dev),
-                             length_scales_tildeell_log=log40, length_scales_L0_log=log40,
-                             length_scales_L1_log=log40)
-    sel = torch.randperm(x.shape[0], device=dev, generator=gen)[:B_ECOG]
-    noise = tc.draw_train_noise(gen, 1, M_ECOG, B_ECOG, D_ECOG)
-    w = torch.ones(B_ECOG, device=dev)
-    orders = [torch.arange(B_ECOG, device=dev)] + [
-        torch.randperm(B_ECOG, device=dev, generator=gen) for _ in range(2)]
+def ecog_problem(x, y, idx, Z, gen):
+    """The ECoG gradient check's problem at ECoG width
+    (`drivers/multidevice_check.ecog_problem`, which the data-parallel
+    ranks take too): returns grads(dtype, order) -> (loss, every
+    parameter's gradient) and the three row orders."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.drivers import (
+        multidevice_check,
+    )
 
-    def grads(dtype, order):
-        p = tc.CNMGPParams(*(t.detach().to(dtype).requires_grad_(True) for t in params))
-        nz = noise._replace(**{f: getattr(noise, f)[..., order] for f in ("z_te", "z_diag", "z_off")})
-        nz = tc.CNMGPNoise(*(None if z is None else z.to(dtype) for z in nz))
-        b = sel[order]
-        loss = tc.negative_selbo(p, Z.to(dtype), x[b].to(dtype), y[b].to(dtype), idx[b],
-                                 w.to(dtype), float(x.shape[0]), nz)
-        loss.backward()
-        return float(loss.detach()), [t.grad for t in p]
+    prob = multidevice_check.ecog_problem(x, y, idx, Z, gen, D_ECOG, B_ECOG)
+    return prob.grads, prob.orders
 
-    return grads, orders
+
+def ecog_grad_tol(plain_errs):
+    """The ECoG gradient gates' tolerance, of max: 3x the worst plain f32
+    error of the three row orders + 1e-5."""
+    return 3 * max(plain_errs) + 1e-5
 
 
 def ecog_gradients(ck, tc, x, y, idx, Z, gen):
@@ -687,12 +684,12 @@ def ecog_gradients(ck, tc, x, y, idx, Z, gen):
     taken in two other orders, the same sum rounded otherwise, and the
     kernels' error may be at most 3x the worst plain error of the three
     orders + 1e-5 of max."""
-    grads, orders = ecog_problem(tc, x, y, idx, Z, gen)
+    grads, orders = ecog_problem(x, y, idx, Z, gen)
     ck.reset_launches()
     runs_k = [grads(torch.float32, o) for o in orders]
     torch.cuda.synchronize()
     launched = dict(ck.LAUNCHES)
-    with plain_versions(ck):
+    with ck.plain_versions():
         runs_p = [grads(torch.float32, o) for o in orders]
     ck.reset_launches()  # float64 takes the plain versions by the dispatch rule
     loss_64, g_64 = grads(torch.float64, orders[0])
@@ -706,7 +703,7 @@ def ecog_gradients(ck, tc, x, y, idx, Z, gen):
     for i, (name, g64) in enumerate(zip(tc.CNMGPParams._fields, g_64)):
         errs_k = [rel_to_max(r[1][i], g64)[1] for r in runs_k]
         errs_p = [rel_to_max(r[1][i], g64)[1] for r in runs_p]
-        tol = 3 * max(errs_p) + 1e-5
+        tol = ecog_grad_tol(errs_p)
         worst = max(worst, errs_k[0] / tol)
         check(errs_k[0] <= tol,
               f"grad {name} vs float64, of max: kernels {errs_k[0]:.3e} (other orders "
@@ -774,13 +771,13 @@ def witness_routes(ck):
 
     @contextmanager
     def hybrid(fn):
-        with plain_versions(ck, others), mock.patch.object(ck, "chol_inv_cuda", fn):
+        with ck.plain_versions(others), mock.patch.object(ck, "chol_inv_cuda", fn):
             yield
 
-    return {"kernels": lambda: plain_versions(ck, ()),
-            "plain": lambda: plain_versions(ck),
-            "chol_inv plain": lambda: plain_versions(ck, ("chol_inv",)),
-            "chol_inv kernel": lambda: plain_versions(ck, others),
+    return {"kernels": lambda: ck.plain_versions(()),
+            "plain": lambda: ck.plain_versions(),
+            "chol_inv plain": lambda: ck.plain_versions(("chol_inv",)),
+            "chol_inv kernel": lambda: ck.plain_versions(others),
             "kernel L": lambda: hybrid(l_only),
             "kernel L^-1": lambda: hybrid(linv_only)}
 
@@ -840,13 +837,13 @@ def chol_inv_witness(ck, tc, dev, smi):
             calls = {}
             if witness == "a":
                 gen = torch.Generator(device=dev).manual_seed(WITNESS_SEED + d)
-                grads_o, orders = ecog_problem(tc, x, y, idx, Z, gen)
+                grads_o, orders = ecog_problem(x, y, idx, Z, gen)
                 grads = lambda dtype, _g=grads_o, _o=orders: _g(dtype, _o[0])[1]  # noqa: E731
-                with plain_versions(ck):
+                with ck.plain_versions():
                     g_p = [grads_o(torch.float32, o)[1] for o in orders]
             else:
                 grads = small_problem(tc, dev, d)
-                with plain_versions(ck):
+                with ck.plain_versions():
                     g_p = [grads(torch.float32)]
             g64 = grads(torch.float64)
             scale = [float(g.abs().max()) for g in g64]
@@ -969,16 +966,13 @@ def training(ck, td, tc, tp, sim, dev, gen, smi):
     return launched
 
 def ecog_data(dev, M):
-    """The flat ECoG training data on the card and Z = linspace(0, 800, M)."""
-    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils.data import (
-        flatten_output_lists,
+    """The flat ECoG training data on the card and Z = linspace(0, 800, M)
+    (`drivers/multidevice_check.ecog_data`)."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.drivers import (
+        multidevice_check,
     )
 
-    flat = flatten_output_lists(*ecog_lists())
-    return (torch.as_tensor(flat.x, dtype=torch.float32, device=dev),
-            torch.as_tensor(flat.y, dtype=torch.float32, device=dev),
-            torch.as_tensor(flat.idx, dtype=torch.int64, device=dev),
-            torch.linspace(0.0, 800.0, M, device=dev))
+    return multidevice_check.ecog_data(dev, D_ECOG, M)
 
 
 # The fused trainer's phase: graph against eager at ECoG width, the rates
@@ -989,11 +983,12 @@ SCAN_SHAPES = (("ECoG D=78 M=100 B=512", D_ECOG, M_ECOG, B_ECOG, 1),
                ("PM2.5-sub D=6 M=100 B=2000", D_PM, M_PM, B_PM, 4))
 
 
-def scan_trainer(td, tc, data, D, B, dtype=torch.float32, seed=0):
+def scan_trainer(td, tc, data, D, B, dtype=torch.float32, seed=0, mesh=None):
     """A fresh `make_scan_epochs` trainer as `inference()` builds it (Adam,
     lr 0.005, the length scales frozen) over `init_params` with `seed`, on
-    the flat data (x, y, idx, Z) cast to `dtype`.  Returns (run, params,
-    mask, (Z, x, y, idx), batches an epoch)."""
+    the flat data (x, y, idx, Z) cast to `dtype`, data-parallel over
+    `mesh` if given.  Returns (run, params, mask, (Z, x, y, idx), batches
+    an epoch)."""
     x, y, idx, Z = data
     x, y, Z = (t.to(dtype) for t in (x, y, Z))
     dev, n = x.device, x.shape[0]
@@ -1001,7 +996,8 @@ def scan_trainer(td, tc, data, D, B, dtype=torch.float32, seed=0):
                             dtype=dtype, device=dev)
     params = tc.CNMGPParams(*(t.requires_grad_(True) for t in params))
     nb = -(-n // B)
-    run = td.make_scan_epochs(td.make_optimizer(params, "adam", 0.005), float(n), JITTER, nb, B)
+    run = td.make_scan_epochs(td.make_optimizer(params, "adam", 0.005), float(n), JITTER, nb, B,
+                              mesh=mesh)
     return run, params, td.freeze_mask(params, True), (Z, x, y, idx), nb
 
 
@@ -1547,7 +1543,7 @@ def value_grad_checks(ck, what, fns, q):
 
     res = {}
     for tag, fn in fns.items():
-        with plain_versions(ck) if tag != "kernels" else ExitStack():
+        with ck.plain_versions() if tag != "kernels" else ExitStack():
             res[tag] = value_and_grad(fn, q.double() if tag == "float64" else q)
     torch.cuda.synchronize()
     for i, name in enumerate(("value", "gradient")):
@@ -1692,7 +1688,7 @@ def fb_svc_nuts(ck, dev, smi):
           f"{device_ms(lambda: ck.chol_inv_plain(S_q), inner=3):.4f} ms ({smi})")
     print("profile of one value_and_grad (a leapfrog's gradient), 4 chains:")
     profile_breakdown(lambda: value_and_grad(lp, q), watch=("chol_inv", "gibbs"))
-    with plain_versions(ck):
+    with ck.plain_versions():
         print(f"the same with the plain versions: {host_ms(lambda: value_and_grad(lp, q)):.3f} ms")
     p = ld.svc_unwhiten(q0, xt, h["mu_tilde_l"], h["mu_L"], chol_l, chol_L, 2)
     K, _ = ld.svc_covariance(p.tilde_l, p.uL_vecs, xt)
@@ -1723,7 +1719,7 @@ def three_way(ck, what, fn, got):
     against float64 at most 3x the plain float32 one + 1e-4, both of the
     output's largest magnitude (`value_grad_checks`' rule), and every
     output finite."""
-    with plain_versions(ck):
+    with ck.plain_versions():
         plain, ref = fn(torch.float32), fn(torch.float64)
     torch.cuda.synchronize()
     tup = lambda o: o if isinstance(o, tuple) else (o,)  # noqa: E731
@@ -1956,7 +1952,7 @@ def prediction_phase(ck, dev, smi, dens, samples, q_map):
         per_call = {k: v for k, v in ck.LAUNCHES.items() if v}
         turns = {}
         for route in ("kernels", "plain", "plain", "kernels"):
-            with plain_versions(ck) if route == "plain" else ExitStack():
+            with ck.plain_versions() if route == "plain" else ExitStack():
                 turns.setdefault(route, []).append(host_ms(fn, reps=10))
         on_device = device_ms(fn, reps=5)
         wall = float(np.mean(turns["kernels"]))
@@ -2010,13 +2006,14 @@ def fb_snmgp(ck, dev, smi):
                                       *SNMGP_HYPERS.values())
     lp = problem(torch.float32, chols)
     value_and_grad(lp, q0)
-    pos, info = run_hmc(lp, q0, gen, num_warmup=20, num_samples=20, num_steps=8)
+    pos, info = run_hmc(lp, q0, gen, num_warmup=SNMGP_HMC, num_samples=SNMGP_HMC, num_steps=8)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = dict(ck.LAUNCHES)
     check(all(launched[k] > 0 for k in ("gibbs", "kron_mv", "rbf", "cholesky"))
           and bool(torch.isfinite(pos).all()),
-          f"SNMGP eigen route (N={N}, MN={M * N}): value, gradient and HMC 20+20 in {wall:.2f} s, "
+          f"SNMGP eigen route (N={N}, MN={M * N}): value, gradient and HMC "
+          f"{SNMGP_HMC}+{SNMGP_HMC} in {wall:.2f} s, "
           f"finite, launches {launched}; accept {float(info['accept_prob'].mean()):.3f}")
     whitening_checks(ck, whiten_calls, "SNMGP")
     value_grad_checks(ck, "SNMGP whitened log-posterior", {
@@ -2052,10 +2049,12 @@ def fb_snmgp(ck, dev, smi):
 # which on the slowest host seen (1.8x) would take this script past its
 # time limit.  The warmup stays whole: cut to 200, the trajectory length
 # did not grow (6 leapfrogs an iteration) and the chains did not mix
-# (R-hat max 9.8).  The samples are cut to 200 (~145 s on the H100's
-# fastest host, ~1060 s for the script on the slowest): at 100, R-hat max
-# was 1.104 against the 1.1 gate below.
-CHEES_WARMUP, CHEES_SAMPLES = 400, 200
+# (R-hat max 9.8).  The samples are cut to 120: the draws of a shorter
+# run are the prefix of a longer one's (one draw an iteration, Halton by
+# offset), and over the prefixes of 200 samples R-hat max was 1.0644 at
+# 100, 1.0431 at 120, 1.0540 at 150 and 1.0370 at 200 (`prefix_main`,
+# PERF.md); at 200 the script took 1209 s on the slowest host seen.
+CHEES_WARMUP, CHEES_SAMPLES = 400, 120
 # The gates of the ChEES study: R-hat max, tilde_l RMSE and corr RMSE.  The
 # JAX package's own CPU run of the same settings with 100 samples (`python
 # scripts/run_mcmc_sim.py --cpu --sampler chees --warmup 400 --samples 100`,
@@ -2148,7 +2147,7 @@ def fb_chees(ck, dev, smi):
     pars = torch.cat([cen[:, :N], lvecs, cen[:, -1:]], dim=1)
     dics = {}
     for tag, dt in (("kernels", torch.float32), ("float64", torch.float64)):
-        with plain_versions(ck) if tag != "kernels" else ExitStack():
+        with ck.plain_versions() if tag != "kernels" else ExitStack():
             t1 = time.perf_counter()
             dics[tag] = metrics.dic(pars.to(dev, dt), ld.svc_deviance,
                                     torch.as_tensor(prob["Y"], dtype=dt, device=dev),
@@ -2277,6 +2276,46 @@ def samplers_main() -> int:
     return 1 if FAILURES else 0
 
 
+def prefix_main(chees_samples: int = 200) -> int:
+    """R-hat max and recovery of each prefix of the SVC NUTS run (FB_WARMUP
+    + FB_SAMPLES, as `fb_svc_nuts` runs it) and of the ChEES study with
+    `chees_samples` samples: the draws of a shorter run are the prefix of a
+    longer one's, so this is where FB_SAMPLES and CHEES_SAMPLES may be cut:
+    python3 -u -c 'import sys, chip_smoke; sys.exit(chip_smoke.prefix_main())'"""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.drivers import mcmc_sim
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.parallel.sharded_mcmc import (
+        potential_scale_reduction,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"card: {smi}")
+    ck.build()
+    _, _, _, (dens, nuts_draws, _) = fb_svc_nuts(ck, torch.device("cuda"), smi)
+    args = mcmc_sim.parse_args(["--sampler", "chees", "--N", str(FB_N), "--chains",
+                                str(FB_CHAINS), "--warmup", str(CHEES_WARMUP), "--samples",
+                                str(chees_samples)])
+    _, study = mcmc_sim.run_study(args)
+    runs = (("NUTS", nuts_draws, dens), ("ChEES", study.samples, study.problem))
+    for name, draws, problem in runs:
+        for k in range(10, draws.shape[1] + 1, 10):
+            d = draws[:, :k].double().cpu()
+            rec = mcmc_sim.recovery(problem, d.numpy())
+            print(f"{name} prefix {k}: R-hat max {float(potential_scale_reduction(d).max()):.4f}, "
+                  f"tilde_l RMSE {rec['rmse_tilde_l']:.4f}, corr RMSE {rec['rmse_corr']:.4f} "
+                  f"({smi})", flush=True)
+    return 0
+
+
 def prediction_main(warmup: int = 20) -> int:
     """The SVC NUTS phase with its warmup cut to `warmup` transitions (its
     gates are printed but not counted), then the prediction phase on its
@@ -2374,7 +2413,7 @@ def selbo_check(ck, td, tc, name, lists, D, B, hyperpars, dev):
     kernels = [grads(torch.float32, o) for o in orders]
     torch.cuda.synchronize()
     launched = dict(ck.LAUNCHES)
-    with plain_versions(ck):
+    with ck.plain_versions():
         plains = [grads(torch.float32, o) for o in orders]
     ck.reset_launches()
     ref = grads(torch.float64, orders[0])
@@ -2550,6 +2589,10 @@ def workload_phase(ck, td, tc, dev, smi):
 # BASELINE_COVERAGE_ABS (on 100 test points a 0.01 step)
 BASELINE_RMSE_REL = 0.05
 BASELINE_COVERAGE_ABS = 0.03
+# baseline_parity.py's Adam steps (IGPR 2000, ICM 3000) cut by this factor
+# in both rows, float32 and float64 alike, to give the multidevice phase
+# its time: the gate compares the two at equal depth
+BASELINE_STEP_CUT = 10
 SICM_INDUCING, SICM_STEPS = 100, 500
 
 
@@ -2570,10 +2613,16 @@ def baselines_phase(ck, dev, smi):
 
     launches = {k: 0 for k in ck.KERNELS}
     runs = {}
+    cut = {"IGPR_STEPS": baseline_parity.IGPR_STEPS // BASELINE_STEP_CUT,
+           "ICM_STEPS": baseline_parity.ICM_STEPS // BASELINE_STEP_CUT}
+    print(f"baseline_parity: its IGPR and ICM Adam steps cut {BASELINE_STEP_CUT}x to {cut}")
     for tag, argv in (("float32", []), ("float64", ["--x64"])):
         ck.reset_launches()
         t0 = time.perf_counter()
-        runs[tag] = baseline_parity.run_fits(argv)
+        with ExitStack() as stack:
+            for name, steps in cut.items():
+                stack.enter_context(mock.patch.object(baseline_parity, name, steps))
+            runs[tag] = baseline_parity.run_fits(argv)
         torch.cuda.synchronize()
         counts = dict(ck.LAUNCHES)
         print(f"baseline_parity {tag}: {time.perf_counter() - t0:.1f} s, launches {counts} ({smi})",
@@ -2618,7 +2667,7 @@ def baselines_phase(ck, dev, smi):
         got = losses(torch.float32)
         torch.cuda.synchronize()
         launched = dict(ck.LAUNCHES)
-        with plain_versions(ck):
+        with ck.plain_versions():
             plain = losses(torch.float32)
         ref = losses(torch.float64)
         check(launched["cholesky"] >= 3 and (kernel != "rbf" or launched["rbf"] >= 3),
@@ -2751,6 +2800,380 @@ def realdata_main() -> int:
     ck.build()
     launches, more = realdata_phases(ck, dsvi, cnmgp, torch.device("cuda"), smi)
     print(json.dumps({"launches": launches, "more": more}))
+    return 1 if FAILURES else 0
+
+
+# The multi-device phase (multidevice_phase): the sizes of its rank parts.
+# ChEES on the SVC study cut to 40 + 10 + 20 iterations (R-hat not gated:
+# ChEES does not converge at a cut depth), NUTS to 6 + 1 + 4 transitions
+# at depth 4; the spawns' time limit.
+MD_RANKS = 2
+MD_CHEES = dict(chees_warmup=40, chees_samples=20)
+MD_NUTS = dict(nuts_warmup=6, nuts_samples=4, nuts_depth=4)
+MD_TIMEOUT_S = 420
+# the predicted band of the NCCL world-1 mesh graph's steps/s below the
+# no-mesh graph's: the all-reduce of one rank is a copy of the gradients
+MD_RATE_BAND = 0.03
+# the training kernels' names in a profiler trace
+TRACE_NAMES = {"gibbs": "gibbs_kernel", "chol_inv": "chol_inv", "quadform_diag": "quadform_diag_kernel",
+               "quadform_diag_dw": "quadform_diag_dw", "quadform_diag_da": "quadform_diag_da"}
+
+
+def native_check(smi):
+    """`utils/native.py` built with g++ on this host, each function against
+    its NumPy version (bit for bit, the windowed covariances at rtol
+    1e-12)."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    ok = native.available()
+    built_s = time.perf_counter() - t0
+    rng = np.random.default_rng(5)
+    x, Y, z = np.sort(rng.random(300)), rng.standard_normal((300, 3)), rng.random(9)
+    got = [native.semivariogram(x, Y[:, 0]), native.semivariogram_multi(x, Y),
+           native.windowed_scatter_cov(Y, 30), native.knn_1d(x, z, 10)]
+    lib, tried = native._lib, native._tried
+    native._lib, native._tried = None, True  # the NumPy versions
+    try:
+        want = [native.semivariogram(x, Y[:, 0]), native.semivariogram_multi(x, Y),
+                native.windowed_scatter_cov(Y, 30), native.knn_1d(x, z, 10)]
+    finally:
+        native._lib, native._tried = lib, tried
+    same = all(np.array_equal(g, w) for i in (0, 1) for g, w in zip(got[i], want[i]))
+    same = same and np.array_equal(got[3], want[3])
+    close = bool(np.allclose(got[2], want[2], rtol=1e-12, atol=1e-15))
+    check(ok and same and close,
+          f"native host library built with g++ here ({built_s:.2f} s, {native._library_path().name}): "
+          f"semivariograms and knn bit for bit against NumPy, windowed covariances at rtol 1e-12 "
+          f"({smi})")
+
+
+def nccl_world1(ck, td, tc, dev, smi):
+    """(a) `inference(mesh=make_mesh())` on an NCCL group of one rank at
+    ECoG width, the all-reduce in the step's CUDA graph, against the run
+    without a mesh; steps/s of the two graphs in turns; the device kernels
+    of a replayed mesh epoch.  Returns (launches, the no-mesh graph's
+    steps/s)."""
+    import torch.distributed as dist
+
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.parallel.launch import (
+        free_port,
+    )
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.parallel.mesh import (
+        make_mesh,
+    )
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    launched = {k: 0 for k in ck.KERNELS}
+
+    def add(counts):
+        for k in ck.KERNELS:
+            launched[k] += counts[k]
+
+    torch.cuda.set_device(dev.index or 0)
+    # the watchdog's checks of captured work: off, as PyTorch's CUDA-graph
+    # notes ask for NCCL collectives in a capture
+    os.environ["TORCH_NCCL_ASYNC_ERROR_HANDLING"] = "0"
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+                            rank=0)
+    try:
+        mesh = make_mesh()
+        X_list, Y_list = ecog_lists()
+        Zn = np.linspace(0.0, 800.0, M_ECOG)
+        kw = dict(batch_size=B_ECOG, dim_outputs=D_ECOG, lr=0.005, itnum=2, seed=0, show_ELBO=False)
+        ck.reset_launches()
+        with_mesh = td.inference(X_list, Y_list, Zn, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        counts, replayed = dict(ck.LAUNCHES), sum(ck.REPLAYED.values())
+        add(counts)
+        ck.reset_launches()
+        base = td.inference(X_list, Y_list, Zn, **kw)
+        add(ck.LAUNCHES)
+        same = with_mesh.loss_list == base.loss_list and all(
+            torch.equal(a, b) for a, b in zip(with_mesh.params, base.params))
+        check(same and replayed > 0 and all(counts[k] > 0 for k in TRAIN_KERNELS),
+              f"NCCL world 1: inference(mesh=make_mesh()) at ECoG width on the graph ({replayed} "
+              f"replayed launches, the all-reduce in the step graph) gives the no-mesh run's "
+              f"{len(base.loss_list)} losses and every parameter bit for bit ({smi})")
+        del with_mesh, base
+
+        ecog = ecog_data(dev, M_ECOG)
+        runs = {}
+        for tag, m in (("mesh", mesh), ("no mesh", None)):
+            run, params, mask, (Z, x, y, idx), nb = scan_trainer(td, tc, ecog, D_ECOG, B_ECOG,
+                                                                 mesh=m)
+            draws = td.EpochDraws(torch.Generator(device=dev).manual_seed(2), M_ECOG, B_ECOG,
+                                  D_ECOG, torch.float32)
+            ck.reset_launches()
+            run(params, mask, Z, x, y, idx, draws, 1)  # the capture, then one epoch
+            torch.cuda.synchronize()
+            add(ck.LAUNCHES)
+            runs[tag] = lambda run=run, a=(params, mask, Z, x, y, idx, draws): run(*a, 1)
+        rates = {}
+        ck.reset_launches()
+        for tag in ("mesh", "no mesh", "no mesh", "mesh"):
+            t0 = time.perf_counter()
+            losses = runs[tag]()
+            torch.cuda.synchronize()
+            rates.setdefault(tag, []).append(nb / (time.perf_counter() - t0))
+            check(bool(torch.isfinite(losses).all()), f"NCCL world 1 rates ({tag}): finite losses")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            runs["mesh"]()
+            torch.cuda.synchronize()
+        add(ck.LAUNCHES)
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        comm = [f"{e.key[:48]} x{e.count}" for e in kernels
+                if "nccl" in e.key.lower() or "memcpy" in e.key.lower()]
+        m_rate, n_rate = max(rates["mesh"]), max(rates["no mesh"])
+        print(f"NCCL world 1: a replayed mesh epoch ({nb} steps) ran {sum(e.count for e in kernels)} "
+              f"device kernels; communication and copies: {'; '.join(comm) or 'none'} ({smi})")
+        print(f"NCCL world 1 steps/s at ECoG width, graphs in turns mesh, no mesh, no mesh, mesh: "
+              f"{rates['mesh'][0]:.2f}, {rates['no mesh'][0]:.2f}, {rates['no mesh'][1]:.2f}, "
+              f"{rates['mesh'][1]:.2f}; predicted within {MD_RATE_BAND:.0%} ({smi})")
+        check(m_rate >= (1 - MD_RATE_BAND) * n_rate,
+              f"NCCL world 1: the mesh graph's best {m_rate:.2f} steps/s within {MD_RATE_BAND:.0%} "
+              f"of the no-mesh graph's {n_rate:.2f}")
+        del runs, run, params, prof
+    finally:
+        dist.destroy_process_group()
+    return launched, n_rate
+
+
+def rank_checks(results, smi):
+    """The gates of (b)-(e) on the ranks' results (`drivers/
+    multidevice_check.card_ranks`)."""
+    r0, r1 = results
+    dp = r0["dp"]
+    worst = 0.0
+    for name, e in dp["grad_errors"].items():
+        tol = ecog_grad_tol(e["plain"])
+        worst = max(worst, e["dp_kernels"] / tol)
+        check(e["dp_kernels"] <= tol,
+              f"gloo DP grad {name} vs float64, of max: 2 ranks with the kernels "
+              f"{e['dp_kernels']:.3e}, plain one process " + ", ".join(f"{v:.3e}" for v in e["plain"])
+              + "; tol 3x the worst plain + 1e-5")
+    need = all(r["dp"]["grad_launches"][k] > 0 for r in results for k in TRAIN_KERNELS)
+    check(need and r0["dp"]["loss"] == r1["dp"]["loss"]
+          and r0["dp"]["params_checksum"] == r1["dp"]["params_checksum"],
+          f"gloo DP at ECoG width, {B_ECOG // MD_RANKS} rows a rank: both ranks launched the five "
+          f"training kernels ({r0['dp']['grad_launches']}), the same loss {dp['loss']:.6e} "
+          f"(float64 {dp['loss64']:.6e}) and the same parameters after {len(results)} ranks' steps; "
+          f"worst error / tolerance {worst:.3f}")
+    for r, res in enumerate(results):
+        d = res["dp"]
+        print(f"gloo DP rank {r}: {d['step_s']:.4f} s a step, the all-reduce of {d['allreduce_mb']:.1f} "
+              f"MiB staged through the host {d['allreduce_s']:.4f} s ({d['allreduce_s'] / d['step_s']:.1%} "
+              f"of the step) ({smi})")
+    c0, c1 = r0["chees"], r1["chees"]
+    check(c0["finite"] and c1["finite"] and c0["step_size"] == c1["step_size"]
+          and c0["trajectory_length"] == c1["trajectory_length"],
+          f"run_chees_sharded SVC (dim {c0['shape'][2]}, {c0['shape'][0]} chains, 2 a rank): finite "
+          f"draws, step size {c0['step_size']:.6g} and trajectory length "
+          f"{c0['trajectory_length']:.6g} equal on both ranks")
+    print(f"run_chees_sharded SVC: {c0['s']:.1f} s, mean accept {c0['mean_accept']:.4f}, R-hat max "
+          f"{c0['rhat_max']:.4f} (not gated: a cut depth), {c0['leapfrogs']} leapfrogs, "
+          f"{c0['host_reads']} host reads on rank 0 ({smi})")
+    for name, m in r0["smc"]["models"].items():
+        lo, hi = SMC_LOG_Z_BANDS[name]
+        check(math.isfinite(m["log_z"]) and lo <= m["log_z"] <= hi and m["last_beta"] == 1.0
+              and m["log_z"] == r1["smc"]["models"][name]["log_z"],
+              f"run_smc_sharded {name}: log Z {m['log_z']:.4f} in the JAX band [{lo}, {hi}], beta 1 "
+              f"after {m['stages']} stages, the same on both ranks ({m['s']:.1f} s)")
+    n0 = r0["nuts"]
+    check(n0["finite"] and r1["nuts"]["finite"],
+          f"run_nuts_sharded SVC {tuple(n0['shape'])}: finite draws in {n0['s']:.1f} s "
+          f"(host reads {n0['host_reads']})")
+    print(f"rank parts: DP {r0['dp']['s']:.1f} s, ChEES {c0['s']:.1f} s, SMC {r0['smc']['s']:.1f} s, "
+          f"NUTS {n0['s']:.1f} s on rank 0 ({smi})")
+
+
+def per_rank_shapes(ck, dev, smi):
+    """The kernels at the shapes one of two ranks gives them: 6a/6b/6c at
+    ECoG's N = 256 rows, chol_inv and gibbs at SMC's 256 particles of the
+    SVC model.  Each f32 result is held against float64 on the same inputs
+    (at most 3x the plain f32 version's error + 1e-6 of max; 6b and 6c in
+    `backward_kernels`), then timed.  Returns timing entries by kernel."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    N, G = B_ECOG // MD_RANKS, D_ECOG * (D_ECOG - 1) // 2
+    more = {"quadform_diag": []}
+    for S, g in ((1, G), (1, D_ECOG)):
+        A = torch.randn(S, M_ECOG, N, device=dev, generator=gen)
+        W = 0.1 * torch.randn(S, g, M_ECOG, M_ECOG, device=dev, generator=gen).tril()
+        shape = f"({S},{g},{M_ECOG},{M_ECOG})x({S},{M_ECOG},{N})"
+        witnessed("quadform_diag a rank", ck.quadform_diag_cuda(A, W),
+                  ck.quadform_diag_plain(A, W), ck.quadform_diag_plain(A.double(), W.double()),
+                  1e-6, shape)
+        more["quadform_diag"].append(timing_entry(
+            f"quadform_diag {shape} a rank",
+            lambda: ck.quadform_diag_cuda(A, W), lambda: ck.quadform_diag_plain(A, W),
+            lambda: torch.einsum("smn,sgmk->sgnk", A, W).square().sum(-1),
+            qf_bound(S, g, M_ECOG, N), inner=1))
+        del A, W
+    for name, (row, _, tc_b) in backward_kernels(ck, gen, dev, M_ECOG, G, N).items():
+        k_ms, p_ms, l_ms, (b_ms, b_by) = row
+        more[name] = [{"at": f"({G},{M_ECOG},{M_ECOG})x({M_ECOG},{N}) a rank", "ms": k_ms,
+                       "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
+                       **tc_b}]
+    b, m = 256, 96
+    K = _spd(gen, dev, b, m)
+    (L, Li), (Lp, Lip), (L64, Li64) = (ck.chol_inv_cuda(K), ck.chol_inv_plain(K),
+                                       ck.chol_inv_plain(K.double()))
+    shape = f"({b}, {m}, {m}) {ck.chol_inv_route(m)} SMC a rank"
+    witnessed("chol_inv L", L, Lp, L64, 1e-6, shape)
+    witnessed("chol_inv L^-1", Li, Lip, Li64, 1e-6, shape)
+    del L, Li, Lp, Lip, L64, Li64
+    more["chol_inv"] = [timing_entry(
+        f"chol_inv ({b},{m},{m}) SMC a rank", lambda: ck.chol_inv_cuda(K),
+        lambda: ck.chol_inv_plain(K), None,
+        bound_ms(4 * b * (m * (m + 1) // 2 + 2 * m * m), b * 2 * m**3 / 3))]
+    S, n = 256, 48
+    x1 = torch.linspace(0.0, 1.0, n, device=dev)
+    l1 = torch.exp(-1.0 + 0.3 * torch.randn(S, n, device=dev, generator=gen))
+    witnessed("gibbs", ck.gibbs_cuda(x1, x1, l1, l1, 1.0), ck.gibbs_plain(x1, x1, l1, l1, 1.0),
+              ck.gibbs_plain(x1.double(), x1.double(), l1.double(), l1.double(), 1.0), 1e-6,
+              f"({S}, {n}, {n}) SMC a rank")
+    el = S * n * n
+    more["gibbs"] = [timing_entry(
+        f"gibbs ({S},{n},{n}) SMC a rank", lambda: ck.gibbs_cuda(x1, x1, l1, l1, 1.0),
+        lambda: ck.gibbs_plain(x1, x1, l1, l1, 1.0), None,
+        bound_ms(4 * (2 * n + 2 * S * n + el), el * 15), inner=10)]
+    return more
+
+
+def profiling_checks(ck, td, tc, dev, smi, steps_per_s):
+    """(g) `utils/profiling`: a trace of three eager ECoG steps (its file's
+    size, its kernel events, the port's kernels among them), `print_mem`,
+    the allocator's counters, and the FLOPs of one ECoG step counted on the
+    plain versions with that step's MFU at the graph's steps/s."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils import profiling
+
+    x, y, idx, Z = ecog_data(dev, M_ECOG)
+    one = step_closure(td, tc, x, y, idx, Z, D_ECOG, B_ECOG)
+    one()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            for _ in range(3):
+                one()
+            torch.cuda.synchronize()
+        (path,) = Path(tmp).iterdir()
+        size = path.stat().st_size
+        events = json.loads(path.read_text())["traceEvents"]
+    spins = [e for e in events if e.get("cat") == "kernel" and "spin_kernel" in e["name"]]
+    kernels = [e["name"] for e in events
+               if e.get("cat") == "kernel" and "spin_kernel" not in e["name"]]
+    seen = {k: sum(TRACE_NAMES[k] in n for n in kernels) for k in TRAIN_KERNELS}
+    # the lead's probes the trace kept, and where the region's kernels start
+    # after its host range opened
+    opened = [e["ts"] for e in events if str(e.get("name", "")).startswith("ProfilerStep#")]
+    region = [e["ts"] for e in events if e.get("name") == profiling.REGION_NAME]
+    first = min((e["ts"] for e in events if e.get("cat") == "kernel"
+                 and "spin_kernel" not in e["name"]), default=None)
+    probe = min((e["ts"] for e in spins), default=None)
+    lead = ("n/a" if not opened or probe is None
+            else f"{(probe - min(opened)) / 1e3:.3f} ms into the window")
+    start = "n/a" if not region or first is None else f"{(first - min(region)) / 1e3:.3f} ms"
+    check(bool(kernels) and all(seen[k] >= 3 for k in TRAIN_KERNELS),
+          f"profiling.trace of 3 eager ECoG steps: {path.name} {size / 2**20:.1f} MiB, "
+          f"{len(kernels)} kernel events besides the lead's probes, the port's kernels among "
+          f"them {seen}; {len(spins)} of the {profiling.CUDA_LEAD_PROBES + 1} lead probes "
+          f"recorded, the first {lead}; the region's first kernel {start} after it opened ({smi})")
+    mb = profiling.print_mem(0)
+    stats = profiling.device_memory_stats()
+    check(mb > 0 and all(s["bytes_in_use"] <= s["peak_bytes_in_use"] <= s["bytes_limit"]
+                         for s in stats.values()) and stats,
+          f"print_mem {mb:.1f} MiB RSS; device_memory_stats {stats}")
+    with ck.plain_versions():
+        flops = profiling.flops_of(one)
+    peak = profiling.peak_flops_per_s()
+    mfu = None if peak is None else flops * steps_per_s / peak
+    check(flops > 0 and peak is not None,
+          f"flops_of one ECoG DSVI step (plain versions, matmul-like operators only): "
+          f"{flops / 1e9:.3f} GFLOP; at the graph's {steps_per_s:.2f} steps/s "
+          f"{flops * steps_per_s / 1e12:.3f} TFLOP/s, MFU {mfu if mfu is None else f'{mfu:.4%}'} "
+          f"of the {peak if peak is None else f'{peak / 1e12:.1f}'} TFLOP/s dense bf16 peak ({smi})")
+
+
+def multidevice_phase(ck, td, tc, dev, smi):
+    """The multi-device layer on the card: the native library (h); an NCCL
+    group of one rank, `inference(mesh=...)` with the all-reduce in the
+    step graph (a); two gloo ranks on this card (b)-(e) in one spawn
+    (`drivers/multidevice_check.card_ranks`: the DP step's gradient against
+    float64, sharded ChEES, SMC and NUTS); `graft_entry.dryrun_multichip(2)`
+    and `entry()` (f); the kernels at one rank's shapes; profiling (g).
+    Returns (launches, the ranks' included; timing entries by kernel)."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.drivers import (
+        graft_entry,
+    )
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.parallel.launch import (
+        spawn,
+    )
+
+    launched = {k: 0 for k in ck.KERNELS}
+
+    def add(counts):
+        for k in ck.KERNELS:
+            launched[k] += counts[k]
+
+    t0 = time.perf_counter()
+    native_check(smi)
+    counts, steps_per_s = nccl_world1(ck, td, tc, dev, smi)
+    add(counts)
+    print(f"multidevice (a) {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t1 = time.perf_counter()
+    results = spawn(f"{PORT}.drivers.multidevice_check:card_ranks", MD_RANKS,
+                    {"device": "cuda", **MD_CHEES, **MD_NUTS},
+                    timeout=MD_TIMEOUT_S)
+    for r in results:
+        add(r["launches"])
+    rank_checks(results, smi)
+    print(f"multidevice (b)-(e) {time.perf_counter() - t1:.1f} s with the ranks' start; launches "
+          f"{[r['launches'] for r in results]}", flush=True)
+
+    t1 = time.perf_counter()
+    dry = graft_entry.dryrun_multichip(MD_RANKS, timeout=MD_TIMEOUT_S)
+    for r in dry:
+        add(r["launches"])
+    fn, args = graft_entry.entry()
+    ck.reset_launches()
+    value = float(fn(*args))
+    add(ck.LAUNCHES)
+    check(math.isfinite(value) and all(sum(r["launches"].values()) > 0 for r in dry),
+          f"graft_entry: dryrun_multichip({MD_RANKS}) on the card launched "
+          f"{[r['launches'] for r in dry]}; entry() negative SELBO {value:.4f} "
+          f"({time.perf_counter() - t1:.1f} s)")
+
+    more = per_rank_shapes(ck, dev, smi)
+    profiling_checks(ck, td, tc, dev, smi, steps_per_s)
+    print(f"multidevice phase {time.perf_counter() - t0:.1f} s ({smi})", flush=True)
+    return launched, more
+
+
+def multidevice_main() -> int:
+    """The multidevice phase alone (with the build):
+    python3 -u -c 'import sys, chip_smoke; sys.exit(chip_smoke.multidevice_main())'"""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer import dsvi
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import cnmgp
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    ck.build()
+    launches, more = multidevice_phase(ck, dsvi, cnmgp, torch.device("cuda"), smi)
+    print(json.dumps({"launches": launches, "more": more}))
+    for f in FAILURES:
+        print("FAILED: " + f)
     return 1 if FAILURES else 0
 
 
@@ -2938,7 +3361,7 @@ def main() -> int:
     double = lambda nz: cnmgp.CNMGPNoise(*(z.double() for z in nz))  # noqa: E731
     calls64 = serving_calls(cnmgp.params_to(params, dev, torch.float64),
                             double(noise_y), double(noise_fy))
-    with plain_versions(ck):
+    with ck.plain_versions():
         ck.reset_launches()
         for name, (fn, _) in calls.items():
             plain = fn()
@@ -3011,7 +3434,7 @@ def main() -> int:
 
     pred_ms = host_ms(calls["predict_Y"][0])
     draw_ms = host_ms(calls["sample_Y"][0]) / N_DRAWS
-    with plain_versions(ck):
+    with ck.plain_versions():
         pred_plain = host_ms(calls["predict_Y"][0])
         draw_plain = host_ms(calls["sample_Y"][0]) / N_DRAWS
     print(f"time predict_Y B=512 request: {pred_ms:.3f} ms (plain versions {pred_plain:.3f} ms), "
@@ -3063,11 +3486,16 @@ def main() -> int:
     t0 = time.perf_counter()
     rd_launched, rd_more = realdata_phases(ck, dsvi, cnmgp, dev, smi)
     print(f"real-data phases {time.perf_counter() - t0:.1f} s; launches {rd_launched}")
-    for name, entries in list(smc_more.items()) + list(pred_more.items()) + list(rd_more.items()):
+    t0 = time.perf_counter()
+    md_launched, md_more = multidevice_phase(ck, dsvi, cnmgp, dev, smi)
+    print(f"multidevice phase {time.perf_counter() - t0:.1f} s; launches {md_launched} (the "
+          f"ranks' included)")
+    for name, entries in (list(smc_more.items()) + list(pred_more.items()) + list(rd_more.items())
+                          + list(md_more.items())):
         more[name] = more.get(name, []) + entries
     for k in ck.KERNELS:
         launches[k] += (fb_launched[k] + pred_launched[k] + sn_launched[k] + ch_launched[k]
-                        + smc_launched[k] + rd_launched[k])
+                        + smc_launched[k] + rd_launched[k] + md_launched[k])
     for name, ((kern, plain, lib, inner, (b_ms, b_by)), _) in fb.items():
         k_ms = device_ms(kern, inner=inner)
         p_ms = device_ms(plain, inner=inner)

@@ -28,6 +28,20 @@ stay on the device until an epoch ends: the host reads them once an epoch.
 The epoch is therefore the port's chunk, where the JAX package's is as many
 epochs as fit its dispatch budget: the rollback guard checks each epoch and
 the chunked test trace has one entry per epoch.
+
+Data-parallel training (`mesh`, a `parallel.mesh.Mesh`): every rank holds
+the whole data and the same generator state, so each builds the same
+shuffle and draws the same noise of the whole minibatch; it takes its rows
+of the minibatch and of that noise (the "data" coordinate's block), and
+its -SELBO terms: the reconstruction scaled by n_total over the whole
+minibatch's weight, the KLs on data rank 0 alone.  The gradients and the
+loss are summed over "data" in one all-reduce, then every rank applies the
+same masked Adam step: the JAX semantics, where GSPMD splits the rows and
+inserts the gradient psum (dsvi.py:129-145).  With the "nccl" backend the
+all-reduce is captured in the step's CUDA graph; "gloo" cannot be
+captured, so its ranks (several may share one card) run the step eagerly,
+a CUDA tensor staged through the host for the all-reduce.  Both run the
+same kernels.
 """
 
 from __future__ import annotations
@@ -44,6 +58,7 @@ from ..models import cnmgp
 from ..models.cnmgp import CNMGPParams
 from ..ops import cuda_kernels
 from ..utils import checkpoint as ckpt
+from ..utils import profiling
 from ..utils.data import flatten_output_lists
 from . import optimizers
 from .optimizers import AdamBf16Moments
@@ -137,22 +152,52 @@ def exponential_decay(lr: float, decay_rate: float, transition_steps: int):
     return lambda t: lr * decay_rate ** (t / transition_steps)
 
 
+def _noise_rows(noise: cnmgp.CNMGPNoise, rows: slice) -> cnmgp.CNMGPNoise:
+    """The draws of the minibatch rows `rows`: the per-row noise sliced on
+    its last dim, the inducing draws (z_v1, z_v2) whole."""
+    return noise._replace(**{k: getattr(noise, k)[..., rows] for k in ("z_te", "z_diag", "z_off")})
+
+
 class _TrainStep:
     """The step of `make_train_step`; `count` is the step count, int32 on
-    the parameters' device, as optax's count."""
+    the parameters' device, as optax's count.  With `mesh`, one rank's
+    share of a data-parallel step (the module docstring)."""
 
-    def __init__(self, optimizer, n_total, jitter, kl_mode, grad_clip_norm, lr, start):
+    def __init__(self, optimizer, n_total, jitter, kl_mode, grad_clip_norm, lr, start,
+                 mesh=None):
         self.optimizer, self.n_total, self.jitter, self.kl_mode = optimizer, n_total, jitter, kl_mode
-        self.grad_clip_norm, self.lr = grad_clip_norm, lr
+        self.grad_clip_norm, self.lr, self.mesh = grad_clip_norm, lr, mesh
         p0 = optimizer.param_groups[0]["params"][0]
         self.count = torch.tensor(int(start), dtype=torch.int32, device=p0.device)
+
+    def _shard_loss(self, params, Z, bx, by, bidx, bw, noise):
+        """This rank's terms of the minibatch's -SELBO, backward, then the
+        gradients and the loss summed over "data" in one all-reduce."""
+        mesh = self.mesh
+        rows = mesh.row_slice(bx.shape[0])
+        loss = cnmgp.negative_selbo(params, Z, bx[rows], by[rows], bidx[rows], bw[rows],
+                                    self.n_total, _noise_rows(noise, rows), self.jitter,
+                                    self.kl_mode, batch_size=torch.sum(bw),
+                                    with_kl=mesh.coordinate() == 0)
+        loss.backward()
+        grads = [p.grad for p in params]
+        flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1)])
+        mesh.all_reduce_(flat)
+        at = 0
+        for p, g in zip(params, grads):
+            p.grad = flat[at:at + g.numel()].view_as(g)
+            at += g.numel()
+        return flat[-1]
 
     def __call__(self, params: CNMGPParams, grad_mask: CNMGPParams, Z, bx, by, bidx, bw, noise):
         opt = self.optimizer
         opt.zero_grad(set_to_none=True)
-        loss = cnmgp.negative_selbo(params, Z, bx, by, bidx, bw, self.n_total, noise, self.jitter,
-                                    self.kl_mode)
-        loss.backward()
+        if self.mesh is None:
+            loss = cnmgp.negative_selbo(params, Z, bx, by, bidx, bw, self.n_total, noise,
+                                        self.jitter, self.kl_mode)
+            loss.backward()
+        else:
+            loss = self._shard_loss(params, Z, bx, by, bidx, bw, noise)
         grads = []
         for p, m in zip(params, grad_mask):
             p.grad = torch.where(torch.isfinite(p.grad), p.grad, 0.0) * m
@@ -351,13 +396,15 @@ class _ScanEpochs:
     def __init__(self, step: _TrainStep, num_batches: int, batch_size: int):
         self.step, self.num_batches, self.batch_size = step, num_batches, batch_size
         self.graphs: Dict[tuple, _EpochGraphs] = {}
+        # a gloo all-reduce cannot be captured in a CUDA graph
+        self.eager = step.mesh is not None and step.mesh.backend == "gloo"
 
     def __call__(self, params, grad_mask, Z, x, y, idx, draws, n_epochs: int) -> torch.Tensor:
         params, grad_mask = CNMGPParams(*params), CNMGPParams(*grad_mask)
         if isinstance(draws, torch.Generator):
             draws = EpochDraws(draws, Z.shape[0], self.batch_size, params.num_outputs, x.dtype)
         nb = self.num_batches
-        if not x.is_cuda:
+        if not x.is_cuda or self.eager:
             return torch.cat([
                 _eager_epoch(self.step, params, grad_mask, Z, x, y, idx, draws, nb,
                              self.batch_size)
@@ -415,12 +462,16 @@ def make_scan_epochs(
     addresses, shapes and dtypes, the device and the generator; the
     optimizer, `kl_mode`, the clip and the schedule are the factory's.  A
     capture that fails raises.  On CPU tensors the same epoch runs op by
-    op.  `mesh` (multi-device) is not ported: it raises
-    NotImplementedError naming ROADMAP.md, Queue 1 item 7."""
-    if mesh is not None:
-        raise NotImplementedError("make_scan_epochs(mesh=...) is not ported yet: ROADMAP.md, "
-                                  "Queue 1 item 7")
-    step = make_train_step(optimizer, n_total, jitter, kl_mode, grad_clip_norm, lr, start)
+    op.
+
+    `mesh` (a `parallel.mesh.Mesh`) makes each step data-parallel over its
+    "data" axis (the module docstring): every rank calls `run` with the
+    whole data, the same parameters and the same draws, and takes its rows
+    of each minibatch, which must split evenly.  The parameters stay equal
+    on every rank, and the losses are the whole minibatches'.  Under the
+    "nccl" backend the step's graph holds the all-reduce; under "gloo" the
+    epochs run op by op."""
+    step = _TrainStep(optimizer, n_total, jitter, kl_mode, grad_clip_norm, lr, start, mesh)
     return _ScanEpochs(step, num_batches, batch_size)
 
 
@@ -581,12 +632,16 @@ def inference(
     `do_stop_criterion`, or a test set without `chunked_test_trace`
     (`rollbacks` 0, `rmse_trace` empty).  The JAX chunk is as many epochs
     as fit its dispatch budget, the port's one epoch: its `rmse_trace` has
-    an entry per epoch, the JAX one fewer.  `mesh` (multi-device) is not
-    ported: it raises NotImplementedError naming ROADMAP.md, Queue 1 item
-    7.
+    an entry per epoch, the JAX one fewer.
+
+    `mesh` (a `parallel.mesh.Mesh` with a "data" axis) trains
+    data-parallel on the fast path, as the JAX package does (see
+    `make_scan_epochs`); every rank of the mesh calls `inference()` with the
+    same arguments, the initial parameters are broadcast from rank 0, every
+    rank returns the same result, and only rank 0 saves a checkpoint.  The
+    other paths ignore it.  The ELBO probe also prints the memory in use
+    (`utils.profiling.print_mem`).
     """
-    if mesh is not None:
-        raise NotImplementedError("inference(mesh=...) is not ported yet: ROADMAP.md, Queue 1 item 7")
     if divergence_rollback and (lr_decay is not None or callable(lr)):
         raise ValueError(
             "divergence_rollback scales a constant injected learning rate; "
@@ -628,6 +683,10 @@ def inference(
         lengthscales = {k: v for k, v in (hyperpars or {}).items() if k.startswith("length_scales")}
         start = _resume(PATH, params, opt, **layout,
                         hyperpars=lengthscales if fix_hyperpars else None)
+    if mesh is not None:
+        with torch.no_grad():
+            for p in params:
+                mesh.broadcast_(p.detach(), 0)
     grad_mask = freeze_mask(params, fix_hyperpars)
     draws = EpochDraws(gen, M, batch_size, D, dtype)
 
@@ -651,7 +710,7 @@ def inference(
     train = dict(grad_clip_norm=grad_clip_norm, lr=schedule, start=start)
     if fast:
         run_epochs = make_scan_epochs(opt, float(n_total), jitter, num_batches, batch_size,
-                                      kl_mode=kl_mode, **train)
+                                      mesh=mesh, kl_mode=kl_mode, **train)
         step = run_epochs.step
     else:
         step = make_train_step(opt, float(n_total), jitter, kl_mode, **train)
@@ -713,10 +772,11 @@ def inference(
                 elbo = float(cnmgp.elbo_estimate(params, Z, x, y, idx, noise, jitter, kl_mode))
             elbo_trace.append(elbo)
             print(f"epoch: {epoch + 1}, ELBO: {elbo:.4f}")
+            profiling.print_mem(epoch + 1)
 
     if verbose or show_ELBO:
         print(f"training takes {time.time() - ts:.2f}s")
-    if save_model and PATH is not None:
+    if save_model and PATH is not None and (mesh is None or mesh.rank == 0):
         ckpt.save_train_state(PATH, params, optimizers.optax_state(opt, params, **layout),
                               epoch=epoch, loss=loss_list[-1], moments_dtype=ckpt_moments_dtype)
     return DSVIResult(

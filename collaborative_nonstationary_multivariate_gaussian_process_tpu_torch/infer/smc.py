@@ -17,7 +17,10 @@ The stage loop runs on the host, one read of beta a stage (`run_smc` and
 `run_smc_staged` are that one loop).  Randomness comes from a `draws`
 object with `resample()` (a stage's resampling uniform), `momentum()` and
 `accept()` (a mutation's (P, dim) normals and (P,) uniforms): `SMCDraws`
-over a `torch.Generator`, or a test's replay of the JAX key splits.
+over a `torch.Generator`, or a test's replay of the JAX key splits.  Every
+statistic across the particles goes through one reductions object
+(`_OneDevice` here; `parallel.sharded_smc` passes one whose reductions are
+collectives over the particle shards).
 """
 
 from __future__ import annotations
@@ -55,10 +58,12 @@ def _ess(log_w):
     return torch.exp(-torch.logsumexp(2.0 * log_w, dim=0))
 
 
-def _find_next_beta(log_like, beta, ess_target_frac, num_particles):
+def _find_next_beta(log_like, beta, ess_target_frac, num_particles, ess=_ess):
     """Bisection for the largest dbeta in (0, 1 - beta] with ESS >= target,
     as the JAX while-loop runs it (at most 50 passes, until hi - lo <= 1e-6
-    (1 - beta)); a pass past the end leaves lo and hi as they are."""
+    (1 - beta)); a pass past the end leaves lo and hi as they are.  The
+    passes are a fixed count, decided by no value: sharded, every rank runs
+    the same ones."""
     target = ess_target_frac * num_particles
     full = 1.0 - beta
     lo, hi = torch.zeros_like(full), full
@@ -66,10 +71,10 @@ def _find_next_beta(log_like, beta, ess_target_frac, num_particles):
     for _ in range(BISECTION_PASSES):
         active = active & ((hi - lo) > 1e-6 * full)
         mid = 0.5 * (lo + hi)
-        ok = _ess(mid * log_like) >= target
+        ok = ess(mid * log_like) >= target
         lo, hi = (torch.where(active & ok, mid, lo), torch.where(active & ~ok, mid, hi))
     # if even the full remaining jump keeps the ESS above target, take it
-    db = torch.where(_ess(full * log_like) >= target, full, lo)
+    db = torch.where(ess(full * log_like) >= target, full, lo)
     db = torch.maximum(db, 1e-6 * full)
     return beta + db
 
@@ -83,24 +88,44 @@ def _systematic_resample(u0, log_w, num_particles):
     return torch.searchsorted(cum, us, right=False).clamp(0, num_particles - 1)
 
 
+class _OneDevice:
+    """The cross-particle statistics when every particle is here."""
+
+    def num_particles(self, local: int) -> int:
+        return local
+
+    def ess(self, log_w):
+        return _ess(log_w)
+
+    def logsumexp(self, x):
+        return torch.logsumexp(x, dim=0)
+
+    def mean(self, x):
+        return torch.mean(x)
+
+    def resample(self, u0, log_w, positions):
+        return positions[_systematic_resample(u0, log_w, positions.shape[0])]
+
+
 def _stage(log_prior_fn, log_like_fn, state: SMCState, draws, num_mutations, num_leapfrog,
-           ess_target_frac, target_accept):
-    P, dim = state.positions.shape
-    new_beta = _find_next_beta(state.log_like, state.beta, ess_target_frac, P)
+           ess_target_frac, target_accept, red=_OneDevice()):
+    dim = state.positions.shape[1]
+    P = red.num_particles(state.positions.shape[0])
+    new_beta = _find_next_beta(state.log_like, state.beta, ess_target_frac, P, red.ess)
     log_w = (new_beta - state.beta) * state.log_like
-    log_z_inc = torch.logsumexp(log_w, dim=0) - math.log(P * 1.0)
-    parents = _systematic_resample(draws.resample(), log_w, P)
+    log_z_inc = red.logsumexp(log_w) - math.log(P * 1.0)
+    resampled = red.resample(draws.resample(), log_w, state.positions)
 
     def lp_fn(q):
         return log_prior_fn(q) + new_beta * log_like_fn(q)
 
-    hs = hmc_init(lp_fn, state.positions[parents])
+    hs = hmc_init(lp_fn, resampled)
     eps = state.step_size
     unit = torch.ones(dim, dtype=eps.dtype, device=eps.device)
     for _ in range(num_mutations):
         hs, aps = hmc_kernel(lp_fn, hs, draws, eps, unit, num_leapfrog)
         # per-round step-size controller toward target_accept
-        eps = eps * torch.exp(0.5 * (torch.mean(aps) - target_accept))
+        eps = eps * torch.exp(0.5 * (red.mean(aps) - target_accept))
     with torch.no_grad():
         new_log_like = log_like_fn(hs.position)
     return SMCState(hs.position, new_log_like, new_beta, state.log_z + log_z_inc, eps,
@@ -121,6 +146,7 @@ def run_smc_staged(
     progress: bool = False,
     draws=None,
     device=None,
+    _red=_OneDevice(),
 ):
     """Adaptive-tempering SMC from the prior (`init_positions` (P, dim),
     prior draws) to the posterior, one stage a host iteration; `progress`
@@ -129,7 +155,10 @@ def run_smc_staged(
 
     Returns (final positions, info): log_z, the log marginal likelihood
     estimate sum_t log E[w_t]; num_stages; final_step_size; betas, the
-    inverse temperature after each stage."""
+    inverse temperature after each stage.  `_red` holds the statistics
+    across particles (`parallel.sharded_smc.run_smc_sharded` passes its
+    collectives); the stage loop's test reads beta, the same on every
+    shard of a sharded run."""
     q0 = initial_positions(init_positions, device)
     P, dim = q0.shape
     if draws is None:
@@ -141,7 +170,7 @@ def run_smc_staged(
     betas = []
     while state.num_stages < max_stages and float(state.beta) < 1.0:
         state = _stage(log_prior_fn, log_like_fn, state, draws, num_mutations, num_leapfrog,
-                       ess_target_frac, target_accept)
+                       ess_target_frac, target_accept, _red)
         betas.append(state.beta)
         if progress:
             print(f"smc stage {state.num_stages}: beta={float(state.beta):.4f}", flush=True)

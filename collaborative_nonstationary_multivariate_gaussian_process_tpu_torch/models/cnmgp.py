@@ -445,7 +445,7 @@ def _reconstruction(params: CNMGPParams, lat: _Latents, y, idx, weight):
 
 def negative_selbo(
     params: CNMGPParams, Z, x, y, idx, weight, n_total, noise: CNMGPNoise,
-    jitter=DSVI_JITTER, kl_mode="true",
+    jitter=DSVI_JITTER, kl_mode="true", batch_size=None, with_kl: bool = True,
 ):
     """-SELBO of one minibatch (JAX `negative_selbo`, cnmgp.py:482-506; the
     reference's `NMGP.forward`, nmgp_dsvi.py:157-301), a scalar tensor.
@@ -454,12 +454,21 @@ def negative_selbo(
     mask of padding; n_total the number of observations.  `noise` comes
     from `draw_train_noise` with one draw (S = 1); with more, the estimate
     is their mean.
+
+    A data-parallel shard passes its rows of the minibatch, `batch_size`
+    the weight of the whole minibatch (default: these rows' own), and
+    `with_kl=False` on every shard but one, so that the shards' terms sum
+    to the minibatch's -SELBO with the KLs counted once.
     """
     lat = _sample_latents(params, Z, x, noise, jitter, kl_mode=kl_mode)
-    batch_size = torch.sum(weight)
+    if batch_size is None:
+        batch_size = torch.sum(weight)
     recon = _reconstruction(params, lat, y, idx, weight)
-    kl_W, kl_v, kl_U = _kl_terms(params, lat, jitter, kl_mode)
-    selbo = n_total / batch_size * recon - kl_W - kl_v - kl_U
+    if with_kl:
+        kl_W, kl_v, kl_U = _kl_terms(params, lat, jitter, kl_mode)
+        selbo = n_total / batch_size * recon - kl_W - kl_v - kl_U
+    else:
+        selbo = n_total / batch_size * recon
     return -torch.mean(selbo)
 
 

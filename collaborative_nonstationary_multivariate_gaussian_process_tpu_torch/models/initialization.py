@@ -10,7 +10,8 @@ global sample covariance ("partial") or free ("all").  The (v, U,
 sigma2_err_log) arrays they return initialize the variational parameters
 (`inference(mu_v=..., mu_U=..., sqrt_*=...)`), as the reference's scripts
 use them.  Also `pre_initialization`, the identity-sqrt variational init
-(nmgp_dsvi.py:737-742).  All of it runs on the host.
+(nmgp_dsvi.py:737-742).  All of it runs on the host; the neighbour search
+goes through `utils.native`, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 from scipy.optimize import minimize
 from scipy.stats import multivariate_normal
+
+from ..utils import native
 
 __all__ = [
     "pre_estimation_partial",
@@ -29,18 +32,11 @@ __all__ = [
 _JITTER = 1e-6
 
 
-def _knn_1d(x, z_m, k):
-    """Indices of the k nearest x to z_m, nearest first, ties by index (the
-    order of the JAX package's native `knn_1d`); past len(x) the last one
-    repeats, as there."""
-    order = np.argsort(np.abs(np.asarray(x, dtype=np.float64) - float(z_m)), kind="stable")[:k]
-    return np.concatenate([order, np.repeat(order[-1:], k - order.shape[0])])
-
-
 def search_nearest_neighborhood(x, Y, z_m, P=10):
     """The P nearest observations (x, Y rows) to the inducing location z_m
-    (pre_nmgp.py:9-12)."""
-    indices = _knn_1d(x, z_m, P)
+    (pre_nmgp.py:9-12), by `utils.native.knn_1d`, as the JAX package finds
+    them: nearest first, ties by index."""
+    indices = native.knn_1d(np.asarray(x), np.asarray([z_m]), P)[0]
     return x[indices], Y[indices]
 
 

@@ -39,6 +39,8 @@ import ctypes
 import hashlib
 import shutil
 import subprocess
+import sys
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -56,6 +58,7 @@ __all__ = [
     "reset_launches",
     "take_captured",
     "count_replay",
+    "plain_versions",
     "build",
     "gibbs_cuda",
     "gibbs_plain",
@@ -167,6 +170,22 @@ def count_replay(recorded: Dict[str, int]) -> None:
     for name, n in recorded.items():
         LAUNCHES[name] += n
         REPLAYED[name] += n
+
+
+@contextmanager
+def plain_versions(names: Iterable[str] = KERNELS):
+    """Route the named kernel wrappers (default every one) to their plain
+    PyTorch versions while the context is open: the computation that a
+    kernel is held against, on the same inputs."""
+    module = sys.modules[__name__]
+    saved = {name: getattr(module, f"{name}_cuda") for name in names}
+    try:
+        for name in saved:
+            setattr(module, f"{name}_cuda", getattr(module, f"{name}_plain"))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(module, f"{name}_cuda", fn)
 
 
 def _nvcc() -> str:

@@ -20,11 +20,27 @@ bfloat16 arrays (the moments of `optimizer="adam_bf16"`, or a save with
 or read such a file, and its absence then raises ImportError: a file is
 never written in another format.  Loading unpickles the file, which can run
 code: load only checkpoints that this package or the JAX package wrote.
+
+`backend="orbax"`, the JAX package's multi-host directory checkpoint, is a
+`torch.distributed.checkpoint` directory here, with the same call
+signature: {"epoch", "loss", "params", "opt_state"}, the leaves by their
+index, each in its own dtype (bfloat16 included, without ml_dtypes).
+Every rank of the process group calls the save: the leaves are the same on
+every rank (replicated training state), and `torch.distributed.checkpoint`
+writes each once.  The save is atomic: it writes `path + ".tmp"`, then rank
+0 swaps it in for `path` by two renames, so an interrupted save leaves the
+previous checkpoint (at `path`, or at `path + ".old"` between the two
+renames, where a load finds it).  A load, at any world size (one process
+without a group included), restores the same bits.  It does not read an
+orbax directory that the JAX package wrote (the card's machine has no
+orbax): the pickle is the file both packages share.
 """
 
 from __future__ import annotations
 
+import os
 import pickle
+import shutil
 import time
 from typing import Any, List, Tuple
 
@@ -124,11 +140,19 @@ def save_train_state(path: str, params, opt_state, epoch: int = 0, loss: float =
     restores each leaf's dtype from the state it is given."""
     t0 = time.time()
     try:
-        if backend != "pickle":
-            _no_backend(backend)
+        if backend not in ("pickle", "orbax"):
+            raise ValueError(f"unknown checkpoint backend {backend!r}")
         if moments_dtype is not None:
             dt = _torch_dtype(moments_dtype)
             opt_state = [t.to(dt) if t.is_floating_point() else t for t in _leaves(opt_state)]
+        if backend == "orbax":
+            _save_dir(path, {
+                "epoch": torch.tensor(int(epoch)),
+                "loss": torch.tensor(float(loss), dtype=torch.float64),
+                "params": _indexed(params),
+                "opt_state": _indexed(opt_state),
+            })
+            return
         state = {
             "epoch": epoch,
             "loss": loss,
@@ -147,31 +171,82 @@ def load_train_state(path: str, params_like, opt_state_like, backend: str = "pic
     is packed (`_migrate_layout`)."""
     t0 = time.time()
     try:
-        if backend != "pickle":
-            _no_backend(backend)
-        state = _pickle_load(path)
+        if backend == "orbax":
+            state = _load_dir(path)
+            state = {k: [v[str(i)] for i in range(len(v))]
+                     for k, v in ((k, state.get(k, {})) for k in ("params", "opt_state"))}
+        elif backend == "pickle":
+            state = _pickle_load(path)
+            state = {k: [_from_numpy(a) for a in state[k]] for k in ("params", "opt_state")}
+        else:
+            raise ValueError(f"unknown checkpoint backend {backend!r}")
         return tuple(_restore(state[key], like, key)
                      for key, like in (("params", params_like), ("opt_state", opt_state_like)))
     finally:
         LAST_IO_SECONDS["load"] = time.time() - t0
 
 
-def _no_backend(backend: str):
-    if backend == "orbax":
-        raise NotImplementedError(
-            "the orbax backend (multi-host checkpoints) is not ported: ROADMAP.md, Queue 1 item 7"
-        )
-    raise ValueError(f"unknown checkpoint backend {backend!r}")
+def _indexed(tree):
+    """The leaves of `tree` as CPU tensors keyed by their index."""
+    return {str(i): t.detach().cpu() for i, t in enumerate(_leaves(tree))}
 
 
-def _restore(arrays, like, what: str):
+def _barrier():
+    if torch.distributed.is_initialized():
+        torch.distributed.barrier()
+
+
+def _save_dir(path: str, state: dict) -> None:
+    """Write `state` with `torch.distributed.checkpoint` to `path + ".tmp"`,
+    then swap it in for `path` (rank 0, two renames)."""
+    import torch.distributed.checkpoint as dcp
+
+    rank0 = not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0
+    tmp, old = path + ".tmp", path + ".old"
+    if rank0:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _barrier()
+    dcp.save(state, checkpoint_id=tmp, no_dist=not torch.distributed.is_initialized())
+    _barrier()
+    if rank0:
+        shutil.rmtree(old, ignore_errors=True)
+        if os.path.exists(path):
+            os.replace(path, old)
+        os.replace(tmp, path)
+        shutil.rmtree(old, ignore_errors=True)
+    _barrier()
+
+
+def _load_dir(path: str) -> dict:
+    """The nested state of a `_save_dir` directory, each leaf in its saved
+    shape and dtype on the CPU (from `path`, or from `path + ".old"` where a
+    save stopped between its renames)."""
+    import torch.distributed.checkpoint as dcp
+
+    if not os.path.isdir(path) and os.path.isdir(path + ".old"):
+        path = path + ".old"
+    if not os.path.isdir(path):
+        raise FileNotFoundError(f"no checkpoint directory at {path}")
+    meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    state: dict = {}
+    for key, m in meta.items():
+        *outer, leaf = key.split(".")
+        node = state
+        for k in outer:
+            node = node.setdefault(k, {})
+        node[leaf] = torch.empty(tuple(m.size), dtype=m.properties.dtype)
+    dcp.load(state, checkpoint_id=path, no_dist=not torch.distributed.is_initialized())
+    return state
+
+
+def _restore(tensors, like, what: str):
     refs = _leaves(like)
-    if len(arrays) != len(refs):
+    if len(tensors) != len(refs):
         raise ValueError(
-            f"checkpoint {what} holds {len(arrays)} leaves where this state has {len(refs)}: "
+            f"checkpoint {what} holds {len(tensors)} leaves where this state has {len(refs)}: "
             f"it was saved with other optimizer options"
         )
-    leaves = _migrate_layout([_from_numpy(a) for a in arrays], refs)
+    leaves = _migrate_layout(tensors, refs)
     return _unflatten(like, [t.to(device=r.device, dtype=r.dtype) for t, r in zip(leaves, refs)])
 
 

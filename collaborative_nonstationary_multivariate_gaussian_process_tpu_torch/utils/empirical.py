@@ -6,10 +6,10 @@ sliding-window Gaussian variogram fits for the local (sigma, ell), windowed
 sample covariances for the local Cholesky process, a moving-average
 smoother, and the reference's `empirical_est.pickle` I/O and diagnostic
 figures (`:116-219`; a file either package writes, the other loads).  The
-JAX package binds a C++ library for the pair loops (`utils/native.py`);
-this copy runs that module's NumPy versions of the same loops, in the same
-pair order.  Importing the JAX module would run the JAX package's
-`__init__`.
+pair loops go through `utils.native`, where the JAX package sends them: the
+repository's C++ host library, or that module's NumPy versions of the same
+loops, in the same pair order, where no compiler is present.  Importing the
+JAX module would run the JAX package's `__init__`.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import numpy as np
 from scipy.optimize import curve_fit
 
 from ..config import PRECISION
+from . import native
 from .visualization import _plt
 
 __all__ = [
@@ -32,19 +33,10 @@ __all__ = [
 ]
 
 
-def _pairs(x, Y):
-    """All pairs i < j in row-major order: (lag (P,), sv (m, P))."""
-    iu, ju = np.triu_indices(x.shape[0], k=1)
-    return x[ju] - x[iu], (0.5 * (Y[ju] - Y[iu]) ** 2).T
-
-
 def semivariogram(x, Y, indx):
     """Experimental semivariogram of output `indx` over all lags
     (empirical_estimation.py:35-56): (lag, sv)."""
-    x = np.asarray(x, dtype=np.float64)
-    y = np.asarray(Y, dtype=np.float64)[:, indx]
-    lag, sv = _pairs(x, y[:, None])
-    return lag, sv[0]
+    return native.semivariogram(np.asarray(x), np.asarray(Y)[:, indx])
 
 
 def variogram_gaussian(s, sigma, l):
@@ -60,17 +52,6 @@ def global_estimation(x, Y):
     return S, L_f[np.tril_indices(M)]
 
 
-def _windowed_scatter_cov(Y, window):
-    """out[p] = Y[s:e]^T Y[s:e] / max(e - s - 1, 1), s = max(0, p - w),
-    e = min(p + w, n - 1) (the reference's window convention)."""
-    n, m = Y.shape
-    out = np.empty((n, m, m))
-    for p in range(n):
-        seg = Y[max(0, p - window):min(p + window, n - 1)]
-        out[p] = seg.T @ seg / max(seg.shape[0] - 1, 1)
-    return out
-
-
 def local_estimation(x, Y, window_size: int = 30):
     """Sliding-window local parameter estimation
     (empirical_estimation.py:71-140).  Returns a dict of per-point arrays:
@@ -80,12 +61,12 @@ def local_estimation(x, Y, window_size: int = 30):
     Y = np.asarray(Y, dtype=np.float64)
     N, M = Y.shape
     sigmas, ls, L_vecs, stds, Rs, Bs = [], [], [], [], [], []
-    S_all = _windowed_scatter_cov(Y, window_size)
+    S_all = native.windowed_scatter_cov(Y, window_size)
     for n in range(N):
         start = max(0, n - window_size)
         end = min(n + window_size, N - 1)
         x_seg, Y_seg = x[start:end], Y[start:end]
-        lag, sv_all = _pairs(x_seg, Y_seg)
+        lag, sv_all = native.semivariogram_multi(x_seg, Y_seg)
         cofs = []
         for m in range(M):
             try:

@@ -309,9 +309,15 @@ def test_pytree_files_are_read_by_both_packages(tmp_path):
 
 
 def test_orbax_backend_is_not_ported(tmp_path):
+    """The orbax backend, which raised until the multi-device layer was
+    ported (the test keeps its name), saves a directory checkpoint of the
+    train state and loads it back bit for bit, in one process without a
+    process group (tests/test_torch_checkpoint_dir.py holds two ranks)."""
     pt, opt = _stepped_adam(torch.float32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tckpt.save_train_state(os.path.join(tmp_path, "o"), pt, optimizers.optax_state(opt, pt),
-                               backend="orbax")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tckpt.load_train_state(os.path.join(tmp_path, "o"), pt, [], backend="orbax")
+    state = optimizers.optax_state(opt, pt)
+    path = os.path.join(tmp_path, "o")
+    tckpt.save_train_state(path, pt, state, epoch=5, backend="orbax")
+    assert os.path.isdir(path)
+    p2, o2 = tckpt.load_train_state(path, pt, state, backend="orbax")
+    for a, b in zip(list(pt) + list(state), list(p2) + list(o2)):
+        assert a.dtype == b.dtype and torch.equal(a.detach(), b)

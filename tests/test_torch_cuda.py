@@ -1216,3 +1216,66 @@ def test_baselines_on_the_card_match_plain(dev, kernel):
         err_k = float((g.double() - w).abs().max() / w.abs().max())
         err_p = float((p.double() - w).abs().max() / w.abs().max())
         assert bool(torch.isfinite(g).all()) and err_k <= 3 * err_p + 1e-4, (err_k, err_p)
+
+
+def test_nccl_world1_mesh_inference_on_the_graph_equals_no_mesh(dev, monkeypatch):
+    """`inference(mesh=make_mesh())` on an NCCL group of one rank, the
+    gradient all-reduce captured in the step's CUDA graph, gives the losses
+    and parameters of the run without a mesh bit for bit (chip_smoke.py's
+    multidevice phase (a) at a small width)."""
+    import os
+    import torch.distributed as dist
+
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer import dsvi
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.parallel.launch import (
+        free_port,
+    )
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.parallel.mesh import (
+        make_mesh,
+    )
+
+    monkeypatch.setitem(os.environ, "TORCH_NCCL_ASYNC_ERROR_HANDLING", "0")
+    rng = np.random.default_rng(4)
+    X = [np.sort(rng.uniform(0, 10, 120)) for _ in range(3)]
+    Y = [np.sin(x) + 0.1 * rng.standard_normal(x.shape) for x in X]
+    kw = dict(batch_size=60, dim_outputs=3, lr=0.01, itnum=2, seed=3, show_ELBO=False)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+                            rank=0)
+    try:
+        ck.reset_launches()
+        with_mesh = dsvi.inference(X, Y, np.linspace(0, 10, 12), mesh=make_mesh(), **kw)
+        torch.cuda.synchronize()
+        replayed = dict(ck.REPLAYED)
+        base = dsvi.inference(X, Y, np.linspace(0, 10, 12), **kw)
+    finally:
+        dist.destroy_process_group()
+    assert all(replayed[k] > 0 for k in TRAIN_KERNELS)
+    assert with_mesh.loss_list == base.loss_list
+    assert all(torch.equal(a, b) for a, b in zip(with_mesh.params, base.params))
+
+
+def test_gloo_two_ranks_on_the_card(dev):
+    """Two gloo ranks on this card (`drivers/multidevice_check.card_ranks`
+    at a small width): the data-parallel gradient within 3x the plain
+    float32 error + 1e-5 of float64's, the five training kernels launched
+    on each rank, the sharded samplers' adaptation equal on both ranks and
+    their draws finite."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.parallel.launch import (
+        spawn,
+    )
+
+    r0, r1 = spawn("collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.drivers."
+                   "multidevice_check:card_ranks", 2,
+                   dict(device="cuda", D=5, M=16, B=64, dp_steps=2, svc_n=16, chees_warmup=8,
+                        chees_samples=4, particles=64, smc_n=8, mutations=1, nuts_warmup=3,
+                        nuts_samples=2), timeout=600)
+    for e in r0["dp"]["grad_errors"].values():
+        assert e["dp_kernels"] <= 3 * max(e["plain"]) + 1e-5
+    for r in (r0, r1):
+        assert all(r["dp"]["grad_launches"][k] > 0 for k in TRAIN_KERNELS)
+        assert r["chees"]["finite"] and r["nuts"]["finite"]
+    assert r0["dp"]["params_checksum"] == r1["dp"]["params_checksum"]
+    assert r0["chees"]["step_size"] == r1["chees"]["step_size"]
+    for name, m in r0["smc"]["models"].items():
+        assert m["log_z"] == r1["smc"]["models"][name]["log_z"] and m["last_beta"] == 1.0

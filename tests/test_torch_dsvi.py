@@ -29,6 +29,9 @@ from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer.o
 )
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import cnmgp as tc
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import predict as tp
+from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.parallel.mesh import (
+    make_mesh,
+)
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils import checkpoint as tckpt
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils.sim import (
     sim_illustration_low_freq,
@@ -213,20 +216,17 @@ def _one_epoch(**options):
 @pytest.mark.parametrize(
     "option, value",
     [("PATH", "model.pkl"), ("save_model", True), ("continuous_training", True),
-     ("ckpt_moments_dtype", torch.bfloat16), ("mesh", object()),
+     ("ckpt_moments_dtype", torch.bfloat16), ("mesh", make_mesh()),
      ("divergence_rollback", True), ("chunked_test_trace", True)],
 )
 def test_deferred_options_raise(option, value, tmp_path, monkeypatch):
-    """The options that raised until the checkpoint and the rollback were
-    ported (the test keeps its name): only `mesh` still raises.  Each of
-    the others, given alone, runs as in the JAX package: a lone `PATH`,
+    """The options that raised until the checkpoint, the rollback and the
+    multi-device layer were ported (the test keeps its name): none raises
+    now.  Each, given alone, runs as in the JAX package: a lone `PATH`,
     `save_model`, `continuous_training` or `ckpt_moments_dtype` does
     nothing (no file, the same losses), the rollback guard only observes a
-    healthy run, and the chunked trace without a test set records nothing."""
-    if option == "mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            _one_epoch(mesh=value)
-        return
+    healthy run, the chunked trace without a test set records nothing, and
+    the 1 x 1 mesh of one process gives the same losses bit for bit."""
     monkeypatch.chdir(tmp_path)
     res, base = _one_epoch(**{option: value}), _one_epoch()
     assert res.loss_list == base.loss_list and res.rollbacks == 0 and res.rmse_trace == []

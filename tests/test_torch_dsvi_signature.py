@@ -1,8 +1,7 @@
 """The port's `inference()` takes every keyword of the JAX package's, with
 the same plain defaults, and its `DSVIResult` has every field of the JAX
 one, so a script written for the JAX package calls the port unchanged (the
-one option not ported, `mesh`, raises NotImplementedError naming its
-ROADMAP item, never TypeError)."""
+data-parallel option, `mesh`, takes the port's `parallel.mesh.Mesh`)."""
 
 import dataclasses
 import inspect

@@ -8,8 +8,8 @@ keys bits(k_perm, (n,), uint32) and each step's noise from split(k_steps,
 num_batches) (`jax_train_noise`).  Adam, Adam with the global-norm clip,
 the `lr_decay` schedule (in float64, `_schedule64`) and the bf16-moment
 Adam, at one batch and at three with a padded last batch (D = 2, M = 6,
-N = 30).  Then `mesh`, the signature, and which paths of `inference()`
-take the fused trainer."""
+N = 30).  Then `mesh` on one process, the signature, and which paths of
+`inference()` take the fused trainer."""
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +24,9 @@ from collaborative_nonstationary_multivariate_gaussian_process_tpu.infer.optimiz
 )
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.infer import dsvi as td
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.models import cnmgp as tc
+from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.parallel.mesh import (
+    make_mesh,
+)
 from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils.sim import (
     sim_illustration_low_freq,
 )
@@ -149,10 +152,26 @@ def test_scan_epochs_match_jax(optimizer, batch_size):
 
 
 def test_mesh_raises_naming_the_roadmap_item():
-    pt = tc.init_params(torch.Generator().manual_seed(0), D, 4, dtype=torch.float64, device="cpu")
-    opt = td.make_optimizer(tc.CNMGPParams(*(t.requires_grad_(True) for t in pt)), "adam", LR)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 7"):
-        td.make_scan_epochs(opt, float(N), JITTER, 1, N, mesh=object())
+    """`mesh`, which raised until the multi-device layer was ported (the
+    test keeps its name), runs: on the 1 x 1 mesh of one process without a
+    process group, two epochs give the losses and parameters of the run
+    without a mesh bit for bit (tests/test_torch_parallel.py holds two
+    ranks)."""
+    x, y, idx = (torch.as_tensor(a) for a in _data())
+    Z = torch.linspace(0.0, 1.0, 4, dtype=torch.float64)
+    runs = []
+    for mesh in (None, make_mesh()):
+        pt = tc.init_params(torch.Generator().manual_seed(0), D, 4, dtype=torch.float64,
+                            device="cpu")
+        pt = tc.CNMGPParams(*(t.requires_grad_(True) for t in pt))
+        run = td.make_scan_epochs(td.make_optimizer(pt, "adam", LR), float(N), JITTER, 3, 12,
+                                  mesh=mesh)
+        losses = run(pt, td.freeze_mask(pt, True), Z, x, y, idx,
+                     torch.Generator().manual_seed(1), EPOCHS)
+        runs.append((losses, pt))
+    (l0, p0), (l1, p1) = runs
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
 
 
 def test_scan_epochs_keeps_the_jax_signature():
