@@ -25,6 +25,14 @@ standard normals of an iteration) and `accept()` (its (C,) uniforms), the
 default `infer.hmc.GeneratorDraws`; a test passes one that replays the JAX
 key splits.  The JAX package's dispatch segments (its TPU worker's
 leapfrog budget) have no counterpart here.
+
+Spans (`utils.profiling.span`, recorded while a profiler records): a
+`chees_warmup` or `chees_sample` call is the root `chees.call` (attributes
+`iterations`, `chains`); in it each iteration `chees.iteration` (attribute
+`leapfrogs`), its host read of the step count `chees.steps_read` (where
+the host waits for the card), each leapfrog `hmc.leapfrog` (half kick,
+drift, gradient, half kick) and the Metropolis correction with the ChEES
+statistic `chees.accept`.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .hmc import (
     DualAveragingState,
     GeneratorDraws,
@@ -123,7 +132,9 @@ def _adam_update(s: AdamState, g, lr=0.025, b1=0.9, b2=0.999, eps=1e-8):
 def _num_steps(traj_len, eps, max_num_steps: int) -> int:
     """clip(ceil(traj_len / eps), 1, max_num_steps), read on the host; a NaN
     ratio counts as 0 (and so 1 step), as the JAX int32 cast has it."""
-    n = float(torch.ceil(traj_len / eps))
+    ratio = torch.ceil(traj_len / eps)
+    with profiling.span("chees.steps_read"):
+        n = float(ratio)
     if math.isnan(n):
         n = 0.0
     return int(min(max(n, 1.0), float(max_num_steps)))
@@ -141,11 +152,22 @@ def _chees_kernel(log_prob_fn, state: CheesState, draws, eps, traj_len, inv_mass
 
     q, p, g, lp = state.position, p0, state.grad, state.log_prob
     for _ in range(num_steps):
-        p_half = p + 0.5 * eps * g
-        q = q + eps * (inv_mass * p_half)
-        lp, g = value_and_grad(log_prob_fn, q)
-        p = p_half + 0.5 * eps * g
+        with profiling.span("hmc.leapfrog"):
+            p_half = p + 0.5 * eps * g
+            q = q + eps * (inv_mass * p_half)
+            lp, g = value_and_grad(log_prob_fn, q)
+            p = p_half + 0.5 * eps * g
 
+    with profiling.span("chees.accept"):
+        new_state, accept_prob, mean_accept, chees_grad_t = _accept(
+            state, draws, q, p, p0, lp, g, inv_mass, cmean)
+    return new_state, accept_prob, mean_accept, chees_grad_t, num_steps
+
+
+def _accept(state: CheesState, draws, q, p, p0, lp, g, inv_mass, cmean):
+    """The Metropolis correction of each chain's proposal (q, p, lp, g) and
+    the cross-chain ChEES gradient: (state, accept_prob, mean accept,
+    ChEES gradient)."""
     ke0 = 0.5 * torch.sum(inv_mass * p0**2, dim=-1)
     ke1 = 0.5 * torch.sum(inv_mass * p**2, dim=-1)
     log_ratio = (lp - ke1) - (state.log_prob - ke0)
@@ -168,7 +190,7 @@ def _chees_kernel(log_prob_fn, state: CheesState, draws, eps, traj_len, inv_mass
     w = torch.where(finite, accept_prob, 0.0)
     per_chain = torch.where(finite, per_chain, 0.0)
     chees_grad_t = cmean(w * per_chain) / torch.clamp(cmean(w), min=1e-10)
-    return new_state, accept_prob, cmean(accept_prob), chees_grad_t, num_steps
+    return new_state, accept_prob, cmean(accept_prob), chees_grad_t
 
 
 def make_phase(log_prob_fn, cmean, max_num_steps, target_accept, adam_lr, adapt):
@@ -178,6 +200,12 @@ def make_phase(log_prob_fn, cmean, max_num_steps, target_accept, adam_lr, adapt)
     (position, accept_prob, log_prob, num_steps)."""
 
     def phase(carry: CheesCarry, h, draws, in_window: bool):
+        with profiling.span("chees.iteration") as iteration:
+            carry, out = step(carry, h, draws, in_window)
+            iteration.set(leapfrogs=out[-1])
+        return carry, out
+
+    def step(carry: CheesCarry, h, draws, in_window: bool):
         eps = torch.exp(carry.da.log_eps)
         traj = h * torch.exp(carry.log_T)
         st, aps, mean_acc, chees_g, nsteps = _chees_kernel(
@@ -270,38 +298,41 @@ def chees_warmup(
     (CheesState, CheesTuning, info): info holds warmup_accept_mean (the
     mean accept probability of the first phase), halton_offset (where
     sampling resumes the jitter), host_reads and leapfrogs."""
-    q0 = initial_positions(init_positions, device)
-    cmean = _chain_mean if cmean is None else cmean
-    draws = _draws_for(draws, generator, q0)
-    if init_traj_length is None:
-        init_traj_length = float(init_step_size)
-    n_re = max(num_warmup // 4, 1)
-    halton = torch.as_tensor(halton_sequence(num_warmup + n_re), dtype=q0.dtype, device=q0.device)
-    carry = init_carry(log_prob_fn, q0, init_step_size, init_traj_length)
-    phase = make_phase(log_prob_fn, cmean, max_num_steps, target_accept, adam_lr, True)
+    with profiling.span("chees.call", iterations=num_warmup + max(num_warmup // 4, 1)) as call:
+        q0 = initial_positions(init_positions, device)
+        call.set(chains=q0.shape[0])
+        cmean = _chain_mean if cmean is None else cmean
+        draws = _draws_for(draws, generator, q0)
+        if init_traj_length is None:
+            init_traj_length = float(init_step_size)
+        n_re = max(num_warmup // 4, 1)
+        halton = torch.as_tensor(halton_sequence(num_warmup + n_re), dtype=q0.dtype,
+                                 device=q0.device)
+        carry = init_carry(log_prob_fn, q0, init_step_size, init_traj_length)
+        phase = make_phase(log_prob_fn, cmean, max_num_steps, target_accept, adam_lr, True)
 
-    half = num_warmup // 2
-    warm_aps, leapfrogs = [], 0
-    for i in range(num_warmup):
-        carry, (aps, n) = phase(carry, halton[i], draws, i >= half)
-        warm_aps.append(aps)
-        leapfrogs += n
-        if progress is not None:
-            progress("warmup", i)
-    carry = finish_mass(carry, mass_adapt and num_warmup > 10)
-    for i in range(n_re):
-        carry, (_, n) = phase(carry, halton[num_warmup + i], draws, False)
-        leapfrogs += n
-        if progress is not None:
-            progress("re-adaptation", i)
-    tuning = CheesTuning(torch.exp(carry.da.log_eps_bar), carry.log_T, carry.inv_mass)
-    info = {
-        "warmup_accept_mean": torch.stack(warm_aps).mean() if warm_aps else None,
-        "halton_offset": num_warmup + n_re,
-        "host_reads": num_warmup + n_re,
-        "leapfrogs": leapfrogs,
-    }
-    return carry.state, tuning, info
+        half = num_warmup // 2
+        warm_aps, leapfrogs = [], 0
+        for i in range(num_warmup):
+            carry, (aps, n) = phase(carry, halton[i], draws, i >= half)
+            warm_aps.append(aps)
+            leapfrogs += n
+            if progress is not None:
+                progress("warmup", i)
+        carry = finish_mass(carry, mass_adapt and num_warmup > 10)
+        for i in range(n_re):
+            carry, (_, n) = phase(carry, halton[num_warmup + i], draws, False)
+            leapfrogs += n
+            if progress is not None:
+                progress("re-adaptation", i)
+        tuning = CheesTuning(torch.exp(carry.da.log_eps_bar), carry.log_T, carry.inv_mass)
+        info = {
+            "warmup_accept_mean": torch.stack(warm_aps).mean() if warm_aps else None,
+            "halton_offset": num_warmup + n_re,
+            "host_reads": num_warmup + n_re,
+            "leapfrogs": leapfrogs,
+        }
+        return carry.state, tuning, info
 
 
 def chees_sample(
@@ -322,28 +353,31 @@ def chees_sample(
     draws continuing) give the draws of one call.  Returns (state,
     positions (C, num_samples, dim), info): accept_prob and log_prob (C,
     num_samples), num_steps (num_samples,) ints, host_reads, leapfrogs."""
-    q = state.position
-    cmean = _chain_mean if cmean is None else cmean
-    draws = _draws_for(draws, generator, q)
-    halton = torch.as_tensor(halton_sequence(num_samples, offset=halton_offset), dtype=q.dtype,
-                             device=q.device)
-    phase = make_phase(log_prob_fn, cmean, max_num_steps, 0.651, 0.0, False)
-    zeros_d = q.new_zeros(q.shape[1])
-    carry = CheesCarry(state, da_init(tuning.step_size), _zero_adam(tuning.step_size),
-                       tuning.log_traj_length, tuning.inv_mass, zeros_d, zeros_d,
-                       torch.zeros_like(tuning.step_size))
-    C, dim = q.shape
-    positions = q.new_empty((C, num_samples, dim))
-    aps, lps = q.new_empty((C, num_samples)), q.new_empty((C, num_samples))
-    nsteps = []
-    for s in range(num_samples):
-        carry, (positions[:, s], aps[:, s], lps[:, s], n) = phase(carry, halton[s], draws, False)
-        nsteps.append(n)
-        if progress is not None:
-            progress("sampling", halton_offset + s)
-    info = {"accept_prob": aps, "log_prob": lps, "num_steps": torch.tensor(nsteps, dtype=torch.int64),
-            "host_reads": num_samples, "leapfrogs": sum(nsteps)}
-    return carry.state, positions, info
+    with profiling.span("chees.call", iterations=num_samples, chains=state.position.shape[0]):
+        q = state.position
+        cmean = _chain_mean if cmean is None else cmean
+        draws = _draws_for(draws, generator, q)
+        halton = torch.as_tensor(halton_sequence(num_samples, offset=halton_offset), dtype=q.dtype,
+                                 device=q.device)
+        phase = make_phase(log_prob_fn, cmean, max_num_steps, 0.651, 0.0, False)
+        zeros_d = q.new_zeros(q.shape[1])
+        carry = CheesCarry(state, da_init(tuning.step_size), _zero_adam(tuning.step_size),
+                           tuning.log_traj_length, tuning.inv_mass, zeros_d, zeros_d,
+                           torch.zeros_like(tuning.step_size))
+        C, dim = q.shape
+        positions = q.new_empty((C, num_samples, dim))
+        aps, lps = q.new_empty((C, num_samples)), q.new_empty((C, num_samples))
+        nsteps = []
+        for s in range(num_samples):
+            carry, (positions[:, s], aps[:, s], lps[:, s], n) = phase(carry, halton[s], draws,
+                                                                      False)
+            nsteps.append(n)
+            if progress is not None:
+                progress("sampling", halton_offset + s)
+        info = {"accept_prob": aps, "log_prob": lps,
+                "num_steps": torch.tensor(nsteps, dtype=torch.int64), "host_reads": num_samples,
+                "leapfrogs": sum(nsteps)}
+        return carry.state, positions, info
 
 
 def run_chees(

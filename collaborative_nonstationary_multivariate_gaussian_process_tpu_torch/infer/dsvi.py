@@ -42,6 +42,12 @@ all-reduce is captured in the step's CUDA graph; "gloo" cannot be
 captured, so its ranks (several may share one card) run the step eagerly,
 a CUDA tensor staged through the host for the all-reduce.  Both run the
 same kernels.
+
+Spans (`utils.profiling.span`, recorded while a profiler records): each
+epoch is the root `dsvi.epoch`, in it the shuffle `dsvi.shuffle`, each
+step `dsvi.step` (a replay of the step's graph, or an eager step) and the
+copy of the losses out `dsvi.losses` (also `inference()`'s host read of
+them); a capture of the graphs is `dsvi.capture`.
 """
 
 from __future__ import annotations
@@ -287,14 +293,19 @@ def _eager_epoch(step, params, grad_mask, Z, x, y, idx, draws, num_batches: int,
     """One epoch, op by op: the body of `make_scan_epochs` on the CPU, and
     the loop of `inference()`'s other paths (`after_step`, if given, is
     called after each step).  Returns the (num_batches,) losses."""
-    keys = draws.sort_keys(x.shape[0]) if num_batches > 1 else None
-    ex, ey, ei, ew = _epoch_arrays(x, y, idx, keys, num_batches, batch_size)
-    losses = []
-    for b in range(num_batches):
-        losses.append(step(params, grad_mask, Z, ex[b], ey[b], ei[b], ew[b], draws.noise()))
-        if after_step is not None:
-            after_step()
-    return torch.stack(losses)
+    with profiling.span("dsvi.epoch"):
+        with profiling.span("dsvi.shuffle"):
+            keys = draws.sort_keys(x.shape[0]) if num_batches > 1 else None
+            ex, ey, ei, ew = _epoch_arrays(x, y, idx, keys, num_batches, batch_size)
+        losses = []
+        for b in range(num_batches):
+            with profiling.span("dsvi.step"):
+                losses.append(step(params, grad_mask, Z, ex[b], ey[b], ei[b], ew[b],
+                                   draws.noise()))
+            if after_step is not None:
+                after_step()
+        with profiling.span("dsvi.losses"):
+            return torch.stack(losses)
 
 
 # Steps run before a capture (the PyTorch whole-network-capture recipe),
@@ -320,9 +331,11 @@ class _EpochGraphs:
     libraries and create the optimizer's state), whose effects on the
     parameters, the optimizer, the step count and the generator are then
     restored in place.  `step_launches` are the kernel launches a step
-    replay makes, `capture_s` the seconds of warmup and capture, and
-    `pool_bytes` the memory the two graphs' pools reserved.  The object
-    keeps every tensor the graphs address alive as long as it lives."""
+    replay makes, `capture_s` the seconds of warmup and capture (the span
+    `dsvi.capture` of `make_scan_epochs`; the counters `dsvi.captures` and
+    `dsvi.capture_s` add each capture's), and `pool_bytes` the memory the
+    two graphs' pools reserved.  The object keeps every tensor the graphs
+    address alive as long as it lives."""
 
     def __init__(self, step: _TrainStep, params, grad_mask, Z, x, y, idx, draws, num_batches: int,
                  batch_size: int):
@@ -379,14 +392,20 @@ class _EpochGraphs:
         torch.cuda.synchronize(dev)
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.capture_s = time.perf_counter() - t0
+        profiling.count("dsvi.captures")
+        profiling.count("dsvi.capture_s", self.capture_s)
 
     def epoch(self, out: torch.Tensor) -> None:
         """Replay one epoch: the shuffle, then each step; the losses go to `out`."""
-        self.shuffle_graph.replay()
-        for _ in range(self.num_batches):
-            self.step_graph.replay()
-            cuda_kernels.count_replay(self.step_launches)
-        out.copy_(self.losses)
+        with profiling.span("dsvi.epoch"):
+            with profiling.span("dsvi.shuffle"):
+                self.shuffle_graph.replay()
+            for _ in range(self.num_batches):
+                with profiling.span("dsvi.step"):
+                    self.step_graph.replay()
+                    cuda_kernels.count_replay(self.step_launches)
+            with profiling.span("dsvi.losses"):
+                out.copy_(self.losses)
 
 
 class _ScanEpochs:
@@ -417,8 +436,9 @@ class _ScanEpochs:
         key = (tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in inputs), str(x.device),
                id(gen))
         if key not in self.graphs:
-            self.graphs[key] = _EpochGraphs(self.step, params, grad_mask, Z, x, y, idx, draws, nb,
-                                            self.batch_size)
+            with profiling.span("dsvi.capture"):
+                self.graphs[key] = _EpochGraphs(self.step, params, grad_mask, Z, x, y, idx, draws,
+                                                nb, self.batch_size)
         graphs = self.graphs[key]
         out = torch.empty(n_epochs * nb, dtype=graphs.losses.dtype, device=x.device)
         for e in range(n_epochs):
@@ -730,7 +750,8 @@ def inference(
             after = None if X_test_list is None else (lambda: rmses.append(test_rmse()))
             losses = _eager_epoch(step, params, grad_mask, Z, x, y, idx, draws, num_batches,
                                   batch_size, after)
-        epoch_losses = losses.tolist()  # the host waits here, once an epoch
+        with profiling.span("dsvi.losses"):
+            epoch_losses = losses.tolist()  # the host waits here, once an epoch
         loss_list.extend(epoch_losses)
         time_list.extend([time.time() - ts] * num_batches)
         if rmses:

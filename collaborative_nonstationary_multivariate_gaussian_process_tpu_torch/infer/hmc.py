@@ -13,6 +13,11 @@ over a `torch.Generator`); a test passes an object with the same methods
 that replays the JAX package's key splits.  A per-chain while-loop of the
 JAX package becomes a masked loop: a chain that has stopped keeps its
 state, and the loop ends when no chain is active (one host read a pass).
+
+A gradient (`value_and_grad`) is the span `hmc.gradient` (attribute
+`chains`), its forward `logdensity.value` and its backward
+`logdensity.backward` (`utils.profiling.span`, recorded while a profiler
+records).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..config import DEFAULT_DTYPE, resolve_device
+from ..utils import profiling
 
 __all__ = [
     "HMCState",
@@ -106,11 +112,14 @@ class _FixedDraws:
 
 def value_and_grad(log_prob_fn: Callable, q):
     """(log_prob_fn(q) (C,), its gradient (C, dim)), both detached."""
-    q = q.detach().requires_grad_(True)
-    with torch.enable_grad():
-        lp = log_prob_fn(q)
-        (g,) = torch.autograd.grad(lp.sum(), q)
-    return lp.detach(), g
+    with profiling.span("hmc.gradient", chains=q.shape[0] if q.ndim > 1 else 1):
+        q = q.detach().requires_grad_(True)
+        with torch.enable_grad():
+            with profiling.span("logdensity.value"):
+                lp = log_prob_fn(q)
+            with profiling.span("logdensity.backward"):
+                (g,) = torch.autograd.grad(lp.sum(), q)
+        return lp.detach(), g
 
 
 def per_chain(value, chains: int, like):

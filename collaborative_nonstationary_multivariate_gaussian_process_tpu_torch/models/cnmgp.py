@@ -8,6 +8,22 @@ of noise.  Where the JAX package vmaps one draw over keys, the functions
 here carry a leading draw dimension S and take their standard-normal noise
 as explicit tensors (`CNMGPNoise`), so a test can feed both packages the
 same numbers.
+
+Spans (`utils.profiling.span`, recorded while a profiler records):
+`cnmgp.noise` (`draw_noise`), `cnmgp.sample_y`, `cnmgp.sample_fy`,
+`cnmgp.predict_mean`, and the stages of a draw and of the mean, each named
+after the step it covers: in a draw `cnmgp.prior_grams` (the stationary
+grams, the inducing draw), `cnmgp.gibbs_prior` (the Gibbs gram of Z),
+`cnmgp.prior_chol_inv` (the prior stack's Cholesky-inverse),
+`cnmgp.cross_solve` (the cross grams' whitened solves),
+`cnmgp.lengthscale`, `cnmgp.coef_diag` and `cnmgp.coef_off` (the
+coefficient groups' moments, the variance quadform), `cnmgp.gibbs_cross`
+(the cross Gibbs gram and its solve), `cnmgp.g_moments` and
+`cnmgp.combine`; in the mean `cnmgp.mean_lengthscale`,
+`cnmgp.mean_projections`, `cnmgp.mean_coef`, `cnmgp.mean_gibbs`,
+`cnmgp.mean_g` and `cnmgp.combine`.  Each holds at most a few hundred
+host operations of its own, so that a profiler's idle gap inside one is
+named after it.
 """
 
 from __future__ import annotations
@@ -37,6 +53,7 @@ from ..ops.linalg import (
     tril_mask,
     tril_regularized,
 )
+from ..utils import profiling
 
 __all__ = [
     "CNMGPParams",
@@ -261,12 +278,14 @@ def draw_noise(
     fields, then z_g and z_y.  `all_outputs` shapes z_y (S, B, D), as
     `sample_fy_once` needs, instead of (S, B)."""
     S, B, D = n_draws, n_points, dim_outputs
-    noise = draw_train_noise(generator, S, num_inducing, B, D, dtype)
+    with profiling.span("cnmgp.noise"):
+        noise = draw_train_noise(generator, S, num_inducing, B, D, dtype)
 
-    def normal(*shape):
-        return torch.randn(shape, generator=generator, dtype=dtype, device=generator.device)
+        def normal(*shape):
+            return torch.randn(shape, generator=generator, dtype=dtype, device=generator.device)
 
-    return noise._replace(z_g=normal(S, D, B), z_y=normal(S, B, D) if all_outputs else normal(S, B))
+        return noise._replace(z_g=normal(S, D, B),
+                              z_y=normal(S, B, D) if all_outputs else normal(S, B))
 
 
 class _Latents(NamedTuple):
@@ -309,84 +328,93 @@ def _sample_latents(
     M = Z.shape[0]
     S = noise.z_v1.shape[0]
 
-    s2_te = torch.exp(params.sigma2_tildeell_log)
-    ls_te = torch.exp(params.length_scales_tildeell_log)
-    s2_L0 = torch.exp(params.sigma2_L0_log)
-    ls_L0 = torch.exp(params.length_scales_L0_log)
-    s2_L1 = torch.exp(params.sigma2_L1_log)
-    ls_L1 = torch.exp(params.length_scales_L1_log)
+    with profiling.span("cnmgp.prior_grams"):
+        s2_te = torch.exp(params.sigma2_tildeell_log)
+        ls_te = torch.exp(params.length_scales_tildeell_log)
+        s2_L0 = torch.exp(params.sigma2_L0_log)
+        ls_L0 = torch.exp(params.length_scales_L0_log)
+        s2_L1 = torch.exp(params.sigma2_L1_log)
+        ls_L1 = torch.exp(params.length_scales_L1_log)
 
-    # one pairwise-distance computation feeds the three stationary kernels
-    d2_xz = sq_dist(x, Z)  # (B, M)
-    d2_zz = sq_dist(Z, Z)  # (M, M)
+        # one pairwise-distance computation feeds the three stationary kernels
+        d2_xz = sq_dist(x, Z)  # (B, M)
+        d2_zz = sq_dist(Z, Z)  # (M, M)
 
-    def _rbf_pair(s2, ls):
-        inv = 0.5 / (ls * ls)
-        return s2 * torch.exp(-d2_xz * inv), s2 * torch.exp(-d2_zz * inv)
+        def _rbf_pair(s2, ls):
+            inv = 0.5 / (ls * ls)
+            return s2 * torch.exp(-d2_xz * inv), s2 * torch.exp(-d2_zz * inv)
 
-    K_te_12, K_te_22 = _rbf_pair(s2_te, ls_te)
-    K_L0_12, K_L0_22 = _rbf_pair(s2_L0, ls_L0)
-    K_L1_12, K_L1_22 = _rbf_pair(s2_L1, ls_L1)
-    if kl_mode == "ref_compat":
-        tril_fn = tril_mask
-        Lt_v = tril_mask(params.sqrt_v)
-        sampled_v = sample_full_cov(params.mu_v, Lt_v, noise.z_v1, noise.z_v2, jitter)
-    else:
-        tril_fn = partial(tril_regularized, jitter=jitter)
-        Lt_v = tril_fn(params.sqrt_v)
-        sampled_v = sample_full_cov(params.mu_v, Lt_v, noise.z_v1, None, 0.0)
-    # f32 overflow guard on the log-lengthscales, as in the JAX package
-    sampled_v = torch.clamp(sampled_v, -30.0, 30.0)  # (S, M)
-    ell_Z = torch.exp(sampled_v)
-    K_G_22 = gibbs(Z, Z, ell_Z, ell_Z, sigma2_g).to(dtype)  # (S, M, M)
+        K_te_12, K_te_22 = _rbf_pair(s2_te, ls_te)
+        K_L0_12, K_L0_22 = _rbf_pair(s2_L0, ls_L0)
+        K_L1_12, K_L1_22 = _rbf_pair(s2_L1, ls_L1)
+        if kl_mode == "ref_compat":
+            tril_fn = tril_mask
+            Lt_v = tril_mask(params.sqrt_v)
+            sampled_v = sample_full_cov(params.mu_v, Lt_v, noise.z_v1, noise.z_v2, jitter)
+        else:
+            tril_fn = partial(tril_regularized, jitter=jitter)
+            Lt_v = tril_fn(params.sqrt_v)
+            sampled_v = sample_full_cov(params.mu_v, Lt_v, noise.z_v1, None, 0.0)
+        # f32 overflow guard on the log-lengthscales, as in the JAX package
+        sampled_v = torch.clamp(sampled_v, -30.0, 30.0)  # (S, M)
+        ell_Z = torch.exp(sampled_v)
+    with profiling.span("cnmgp.gibbs_prior"):
+        K_G_22 = gibbs(Z, Z, ell_Z, ell_Z, sigma2_g).to(dtype)  # (S, M, M)
 
-    eyeM = torch.eye(M, dtype=dtype, device=x.device)
-    K_stat = torch.stack([K_te_22, K_L0_22, K_L1_22]).expand(S, 3, M, M)
-    K_stack = torch.cat([K_stat, K_G_22[:, None]], dim=1) + jitter * eyeM
-    if robust:
-        Lp_all, Lp_inv = chol_tri_inv_robust(K_stack, jitter)
-    else:
-        Lp_all, Lp_inv = chol_tri_inv(K_stack)
-    K12s = torch.stack([K_te_12, K_L0_12, K_L1_12]).transpose(-1, -2)  # (3, M, B)
-    A_stat = tri_solve_white(Lp_all[:, :3], Lp_inv[:, :3], K12s.expand(S, 3, M, B))
-    A_te, A_L0, A_L1 = A_stat[:, 0], A_stat[:, 1], A_stat[:, 2]  # (S, M, B)
+    with profiling.span("cnmgp.prior_chol_inv"):
+        eyeM = torch.eye(M, dtype=dtype, device=x.device)
+        K_stat = torch.stack([K_te_22, K_L0_22, K_L1_22]).expand(S, 3, M, M)
+        K_stack = torch.cat([K_stat, K_G_22[:, None]], dim=1) + jitter * eyeM
+        if robust:
+            Lp_all, Lp_inv = chol_tri_inv_robust(K_stack, jitter)
+        else:
+            Lp_all, Lp_inv = chol_tri_inv(K_stack)
+    with profiling.span("cnmgp.cross_solve"):
+        K12s = torch.stack([K_te_12, K_L0_12, K_L1_12]).transpose(-1, -2)  # (3, M, B)
+        A_stat = tri_solve_white(Lp_all[:, :3], Lp_inv[:, :3], K12s.expand(S, 3, M, B))
+        A_te, A_L0, A_L1 = A_stat[:, 0], A_stat[:, 1], A_stat[:, 2]  # (S, M, B)
 
     # --- (v, tilde_ell) joint draw ---------------------------------------
-    proj_v = torch.matmul(Lp_inv[:, 0], sampled_v[..., None])  # (S, M, 1)
-    mu_te = torch.matmul(A_te.transpose(-1, -2), proj_v)[..., 0]  # (S, B)
-    # clamp the Nystrom residual: float32 cancellation at large M
-    var_te = torch.clamp(s2_te - torch.sum(A_te * A_te, dim=-2), min=0.0)
-    tilde_ell = torch.clamp(sample_diag(mu_te, var_te, noise.z_te, jitter), -30.0, 30.0)
-    ell_X = torch.exp(tilde_ell)
-    Wh_v = torch.matmul(Lp_inv[:, 0], Lt_v)  # (S, M, M)
+    with profiling.span("cnmgp.lengthscale"):
+        proj_v = torch.matmul(Lp_inv[:, 0], sampled_v[..., None])  # (S, M, 1)
+        mu_te = torch.matmul(A_te.transpose(-1, -2), proj_v)[..., 0]  # (S, B)
+        # clamp the Nystrom residual: float32 cancellation at large M
+        var_te = torch.clamp(s2_te - torch.sum(A_te * A_te, dim=-2), min=0.0)
+        tilde_ell = torch.clamp(sample_diag(mu_te, var_te, noise.z_te, jitter), -30.0, 30.0)
+        ell_X = torch.exp(tilde_ell)
+        Wh_v = torch.matmul(Lp_inv[:, 0], Lt_v)  # (S, M, M)
 
     # --- coefficient matrix L(x); packed [:T0] offdiag, [T0:] diag --------
-    T0 = D * (D - 1) // 2
-    Sigma_U_tril = tril_fn(params.sqrt_U)  # (G, M, M)
-    mean_d, var_d, Wh_diag = mgp_mean_var_white(
-        A_L1, Lp_inv[:, 2], s2_L1, params.mu_U[T0:], Sigma_U_tril[T0:]
-    )
-    L_diag = torch.exp(sample_diag(mean_d, var_d, noise.z_diag, jitter))  # (S, D, B)
-
-    L_full = torch.zeros((S, B, D, D), dtype=dtype, device=x.device)
-    if D > 1:
-        ii, jj = _tril_idx(D, x.device, -1)
-        mean_o, var_o, Wh_off = mgp_mean_var_white(
-            A_L0, Lp_inv[:, 1], s2_L0, params.mu_U[:T0], Sigma_U_tril[:T0]
+    with profiling.span("cnmgp.coef_diag"):
+        T0 = D * (D - 1) // 2
+        Sigma_U_tril = tril_fn(params.sqrt_U)  # (G, M, M)
+        mean_d, var_d, Wh_diag = mgp_mean_var_white(
+            A_L1, Lp_inv[:, 2], s2_L1, params.mu_U[T0:], Sigma_U_tril[T0:]
         )
-        L_off = sample_diag(mean_o, var_o, noise.z_off, jitter)  # (S, T0, B)
-        L_full[:, :, ii, jj] = L_off.transpose(-1, -2)
-    else:
-        Wh_off = torch.zeros((S, 0, M, M), dtype=dtype, device=x.device)
-    dd = torch.arange(D, device=x.device)
-    L_full[:, :, dd, dd] = L_diag.transpose(-1, -2)
+        L_diag = torch.exp(sample_diag(mean_d, var_d, noise.z_diag, jitter))  # (S, D, B)
+
+    with profiling.span("cnmgp.coef_off"):
+        L_full = torch.zeros((S, B, D, D), dtype=dtype, device=x.device)
+        if D > 1:
+            ii, jj = _tril_idx(D, x.device, -1)
+            mean_o, var_o, Wh_off = mgp_mean_var_white(
+                A_L0, Lp_inv[:, 1], s2_L0, params.mu_U[:T0], Sigma_U_tril[:T0]
+            )
+            L_off = sample_diag(mean_o, var_o, noise.z_off, jitter)  # (S, T0, B)
+            L_full[:, :, ii, jj] = L_off.transpose(-1, -2)
+        else:
+            Wh_off = torch.zeros((S, 0, M, M), dtype=dtype, device=x.device)
+        dd = torch.arange(D, device=x.device)
+        L_full[:, :, dd, dd] = L_diag.transpose(-1, -2)
 
     # --- shared latents g (analytic marginal stats) ----------------------
-    K_G_12 = gibbs(x, Z, ell_X, ell_Z, sigma2_g)  # (S, B, M)
-    A_G = tri_solve_white(Lp_all[:, 3], Lp_inv[:, 3], K_G_12.transpose(-1, -2))
-    mu_g, s2_g, Wh_W = mgp_mean_var_white(
-        A_G, Lp_inv[:, 3], sigma2_g, params.mu_W, tril_fn(params.sqrt_W)
-    )
+    with profiling.span("cnmgp.gibbs_cross"):
+        K_G_12 = gibbs(x, Z, ell_X, ell_Z, sigma2_g)  # (S, B, M)
+        A_G = tri_solve_white(Lp_all[:, 3], Lp_inv[:, 3], K_G_12.transpose(-1, -2))
+    with profiling.span("cnmgp.g_moments"):
+        mu_g, s2_g, Wh_W = mgp_mean_var_white(
+            A_G, Lp_inv[:, 3], sigma2_g, params.mu_W, tril_fn(params.sqrt_W)
+        )
     return _Latents(
         L_full=L_full, mu_g=mu_g, sigma2_g=s2_g, tilde_ell=tilde_ell, sampled_v=sampled_v,
         Lp_all=Lp_all, Lp_inv=Lp_inv, Wh_v=Wh_v, Wh_off=Wh_off, Wh_diag=Wh_diag, Wh_W=Wh_W,
@@ -499,14 +527,16 @@ def sample_y_once(params: CNMGPParams, Z, x, idx, noise: CNMGPNoise, jitter=DSVI
     g_star (S, D, B), tilde_ell (S, B)).  The prior factorization is the
     robust one.  `kl_mode` must match how the model was trained.
     """
-    lat = _sample_latents(params, Z, x, noise, jitter, robust=True, kl_mode=kl_mode)
-    g_star = sample_diag(lat.mu_g, lat.sigma2_g, noise.z_g, jitter)  # (S, D, B)
-    rows = torch.arange(x.shape[0], device=x.device)
-    l_star = lat.L_full[:, rows, idx, :]  # (S, B, D)
-    F = torch.sum(l_star * g_star.transpose(-1, -2), dim=-1)  # (S, B)
-    s2_err = torch.exp(params.sigma2_err_log)
-    y_star = sample_diag(F, s2_err, noise.z_y, jitter)
-    return y_star, l_star, g_star, lat.tilde_ell
+    with profiling.span("cnmgp.sample_y"):
+        lat = _sample_latents(params, Z, x, noise, jitter, robust=True, kl_mode=kl_mode)
+        with profiling.span("cnmgp.combine"):
+            g_star = sample_diag(lat.mu_g, lat.sigma2_g, noise.z_g, jitter)  # (S, D, B)
+            rows = torch.arange(x.shape[0], device=x.device)
+            l_star = lat.L_full[:, rows, idx, :]  # (S, B, D)
+            F = torch.sum(l_star * g_star.transpose(-1, -2), dim=-1)  # (S, B)
+            s2_err = torch.exp(params.sigma2_err_log)
+            y_star = sample_diag(F, s2_err, noise.z_y, jitter)
+        return y_star, l_star, g_star, lat.tilde_ell
 
 
 def sample_fy_once(params: CNMGPParams, Z, x, noise: CNMGPNoise, jitter=DSVI_JITTER,
@@ -514,48 +544,56 @@ def sample_fy_once(params: CNMGPParams, Z, x, noise: CNMGPNoise, jitter=DSVI_JIT
     """Draws of (tilde_ell (S, B), Y (S, B, D), corr (S, B, D, D)) at common
     inputs x, one per leading row of `noise` (the JAX `sample_fy_once`):
     all D outputs at every input and corr = Dg^-1 L L^T Dg^-1."""
-    lat = _sample_latents(params, Z, x, noise, jitter, robust=True, kl_mode=kl_mode)
-    g_star = sample_diag(lat.mu_g, lat.sigma2_g, noise.z_g, jitter)  # (S, D, B)
-    F = torch.einsum("sbij,sjb->sbi", lat.L_full, g_star)  # (S, B, D)
-    s2_err = torch.exp(params.sigma2_err_log)
-    Y = sample_diag(F, s2_err, noise.z_y, jitter)
-    cov = torch.einsum("sbij,sbkj->sbik", lat.L_full, lat.L_full)
-    inv_std = 1.0 / torch.sqrt(torch.diagonal(cov, dim1=-2, dim2=-1))
-    corr = cov * inv_std[..., :, None] * inv_std[..., None, :]
-    return lat.tilde_ell, Y, corr
+    with profiling.span("cnmgp.sample_fy"):
+        lat = _sample_latents(params, Z, x, noise, jitter, robust=True, kl_mode=kl_mode)
+        with profiling.span("cnmgp.combine"):
+            g_star = sample_diag(lat.mu_g, lat.sigma2_g, noise.z_g, jitter)  # (S, D, B)
+            F = torch.einsum("sbij,sjb->sbi", lat.L_full, g_star)  # (S, B, D)
+            s2_err = torch.exp(params.sigma2_err_log)
+            Y = sample_diag(F, s2_err, noise.z_y, jitter)
+            cov = torch.einsum("sbij,sbkj->sbik", lat.L_full, lat.L_full)
+            inv_std = 1.0 / torch.sqrt(torch.diagonal(cov, dim1=-2, dim2=-1))
+            corr = cov * inv_std[..., :, None] * inv_std[..., None, :]
+        return lat.tilde_ell, Y, corr
 
 
 def predict_y_mean(params: CNMGPParams, Z, x, idx, jitter=DSVI_JITTER, sigma2_g=1.0):
     """Plug-in posterior-mean prediction at flat inputs x (B,) with output
     rows idx (reference `predict_Y`, nmgp_dsvi.py:666-722): every latent at
     its posterior mean.  Returns (B,)."""
-    D = params.num_outputs
-    B = x.shape[0]
-    s2_te = torch.exp(params.sigma2_tildeell_log)
-    ls_te = torch.exp(params.length_scales_tildeell_log)
-    s2_L0 = torch.exp(params.sigma2_L0_log)
-    ls_L0 = torch.exp(params.length_scales_L0_log)
-    s2_L1 = torch.exp(params.sigma2_L1_log)
-    ls_L1 = torch.exp(params.length_scales_L1_log)
+    with profiling.span("cnmgp.predict_mean"):
+        D = params.num_outputs
+        B = x.shape[0]
+        with profiling.span("cnmgp.mean_lengthscale"):
+            s2_te = torch.exp(params.sigma2_tildeell_log)
+            ls_te = torch.exp(params.length_scales_tildeell_log)
+            P_te = conditional_projection(rbf(x, Z, s2_te, ls_te), rbf(Z, Z, s2_te, ls_te), jitter)
+            est_tilde_ell = mgp_mean(P_te, params.mu_v)
+            ell_Z = torch.exp(params.mu_v)
+            ell_X = torch.exp(est_tilde_ell)
 
-    P_te = conditional_projection(rbf(x, Z, s2_te, ls_te), rbf(Z, Z, s2_te, ls_te), jitter)
-    est_tilde_ell = mgp_mean(P_te, params.mu_v)
-    ell_Z = torch.exp(params.mu_v)
-    ell_X = torch.exp(est_tilde_ell)
+        with profiling.span("cnmgp.mean_projections"):
+            s2_L0 = torch.exp(params.sigma2_L0_log)
+            ls_L0 = torch.exp(params.length_scales_L0_log)
+            s2_L1 = torch.exp(params.sigma2_L1_log)
+            ls_L1 = torch.exp(params.length_scales_L1_log)
+            P0 = conditional_projection(rbf(x, Z, s2_L0, ls_L0), rbf(Z, Z, s2_L0, ls_L0), jitter)
+            P1 = conditional_projection(rbf(x, Z, s2_L1, ls_L1), rbf(Z, Z, s2_L1, ls_L1), jitter)
+        with profiling.span("cnmgp.mean_coef"):
+            T0 = D * (D - 1) // 2
+            L_full = torch.zeros((B, D, D), dtype=x.dtype, device=x.device)
+            dd = torch.arange(D, device=x.device)
+            L_full[:, dd, dd] = torch.exp(mgp_mean(P1, params.mu_U[T0:])).T
+            if D > 1:
+                ii, jj = _tril_idx(D, x.device, -1)
+                L_full[:, ii, jj] = mgp_mean(P0, params.mu_U[:T0]).T
 
-    P0 = conditional_projection(rbf(x, Z, s2_L0, ls_L0), rbf(Z, Z, s2_L0, ls_L0), jitter)
-    P1 = conditional_projection(rbf(x, Z, s2_L1, ls_L1), rbf(Z, Z, s2_L1, ls_L1), jitter)
-    T0 = D * (D - 1) // 2
-    L_full = torch.zeros((B, D, D), dtype=x.dtype, device=x.device)
-    dd = torch.arange(D, device=x.device)
-    L_full[:, dd, dd] = torch.exp(mgp_mean(P1, params.mu_U[T0:])).T
-    if D > 1:
-        ii, jj = _tril_idx(D, x.device, -1)
-        L_full[:, ii, jj] = mgp_mean(P0, params.mu_U[:T0]).T
-
-    K_G_12 = gibbs(x, Z, ell_X, ell_Z, sigma2_g)
-    K_G_22 = gibbs(Z, Z, ell_Z, ell_Z, sigma2_g)
-    P_G = conditional_projection(K_G_12, K_G_22, jitter)
-    est_g = mgp_mean(P_G, params.mu_W)  # (D, B)
-    est_Y = torch.einsum("bij,jb->bi", L_full, est_g)  # (B, D)
-    return est_Y[torch.arange(B, device=x.device), idx]
+        with profiling.span("cnmgp.mean_gibbs"):
+            K_G_12 = gibbs(x, Z, ell_X, ell_Z, sigma2_g)
+            K_G_22 = gibbs(Z, Z, ell_Z, ell_Z, sigma2_g)
+        with profiling.span("cnmgp.mean_g"):
+            P_G = conditional_projection(K_G_12, K_G_22, jitter)
+            est_g = mgp_mean(P_G, params.mu_W)  # (D, B)
+        with profiling.span("cnmgp.combine"):
+            est_Y = torch.einsum("bij,jb->bi", L_full, est_g)  # (B, D)
+            return est_Y[torch.arange(B, device=x.device), idx]

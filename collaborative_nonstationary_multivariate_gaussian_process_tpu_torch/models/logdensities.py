@@ -41,6 +41,7 @@ from ..ops.distributions import (
 )
 from ..ops.kernels import nonstationary_rbf, rbf
 from ..ops.linalg import cholesky, uvec_to_lvec, vec_to_tril
+from ..utils import profiling
 
 __all__ = [
     "tri_size",
@@ -536,17 +537,21 @@ def svc_unwhiten(pars_white, x, mu_tilde_l, mu_L, chol_l, chol_L, M: int):
 def svc_log_posterior_whitened(pars_white, Y, x, chol_l, chol_L, mu_tilde_l=0.0, mu_L=0.0,
                                a=1.0, b=1.0):
     """Whitened SVC log posterior: the posterior of `svc_log_posterior`
-    under `svc_unwhiten`, with N(0, I) priors on the etas."""
+    under `svc_unwhiten`, with N(0, I) priors on the etas.  Its stages are
+    the spans `logdensity.svc_covariance` (unwhitening and the covariance)
+    and `logdensity.svc_mvn` (the dense log-pdf, the priors)."""
     N, M = Y.shape
-    p = svc_unwhiten(pars_white, x, mu_tilde_l, mu_L, chol_l, chol_L, M)
-    sigma2_err = torch.exp(p.tilde_sigma2_err)
-    K, _ = svc_covariance(p.tilde_l, p.uL_vecs, x)
-    S = K + sigma2_err[..., None, None] * _eye(N * M, x)
-    y = _task_major(Y)
-    res = mvn_logpdf_dense(y, torch.zeros_like(y), S)
-    eta = pars_white[..., :-1]
-    res = res - 0.5 * torch.sum(eta**2, dim=-1)
-    return res + _inv_gamma_and_jacobian(p, sigma2_err, a, b)
+    with profiling.span("logdensity.svc_covariance"):
+        p = svc_unwhiten(pars_white, x, mu_tilde_l, mu_L, chol_l, chol_L, M)
+        sigma2_err = torch.exp(p.tilde_sigma2_err)
+        K, _ = svc_covariance(p.tilde_l, p.uL_vecs, x)
+        S = K + sigma2_err[..., None, None] * _eye(N * M, x)
+    with profiling.span("logdensity.svc_mvn"):
+        y = _task_major(Y)
+        res = mvn_logpdf_dense(y, torch.zeros_like(y), S)
+        eta = pars_white[..., :-1]
+        res = res - 0.5 * torch.sum(eta**2, dim=-1)
+        return res + _inv_gamma_and_jacobian(p, sigma2_err, a, b)
 
 
 def snmgp_whiten_chols(x, alpha_tilde_l, beta_tilde_l, alpha_tilde_sigma, beta_tilde_sigma):

@@ -6,6 +6,12 @@ draw holds per-group intermediates of O(D^2 M^2) floats (the (S, G, M, M)
 whitened factors are ~120 MB per draw at D=78, M=100), so the chunk bounds
 device memory.  The entry points run on the first CUDA card unless
 `device` names another (the tests pass "cpu").
+
+Spans (`utils.profiling.span`, recorded while a profiler records): each
+call is the root `predict.request` (attributes `kind`, `points`, `draws`);
+in it `predict.inputs` (the NumPy inputs concatenated and copied to the
+device), each chunk of draws `predict.chunk`, and the draws' final
+concatenation `predict.concat`.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import numpy as np
 import torch
 
 from ..config import DSVI_JITTER, resolve_device
+from ..utils import profiling
 from . import cnmgp
 from .cnmgp import CNMGPNoise, CNMGPParams
 
@@ -62,12 +69,15 @@ def _chunked_draws(
     outs = []
     for start in range(0, n_sample, draws_per_chunk):
         stop = min(start + draws_per_chunk, n_sample)
-        if noise is None:
-            chunk = make_noise(generator, stop - start)
-        else:
-            chunk = CNMGPNoise(*(None if z is None else z[start:stop].to(device) for z in noise))
-        outs.append(draw_fn(chunk))
-    return tuple(torch.cat(parts, dim=0) for parts in zip(*outs))
+        with profiling.span("predict.chunk", draws=stop - start):
+            if noise is None:
+                chunk = make_noise(generator, stop - start)
+            else:
+                chunk = CNMGPNoise(*(None if z is None else z[start:stop].to(device)
+                                     for z in noise))
+            outs.append(draw_fn(chunk))
+    with profiling.span("predict.concat"):
+        return tuple(torch.cat(parts, dim=0) for parts in zip(*outs))
 
 
 def sample_Y(
@@ -90,17 +100,20 @@ def sample_Y(
     (nmgp_dsvi.py:406-491).  `noise` (leading dim S) replaces the draws from
     `seed`; the same `seed` gives other draws than the JAX `sample_Y`.
     """
-    params, Z, device = _setup(params, Z, device)
-    x, idx = _flat_inputs(X_list, index, Z.dtype, device)
-    M, B, D = Z.shape[0], x.shape[0], params.num_outputs
+    with profiling.span("predict.request", kind="sample_Y", draws=n_sample) as request:
+        with profiling.span("predict.inputs"):
+            params, Z, device = _setup(params, Z, device)
+            x, idx = _flat_inputs(X_list, index, Z.dtype, device)
+        M, B, D = Z.shape[0], x.shape[0], params.num_outputs
+        request.set(points=B)
 
-    def make_noise(gen, s):
-        return cnmgp.draw_noise(gen, s, M, B, D, dtype=Z.dtype)
+        def make_noise(gen, s):
+            return cnmgp.draw_noise(gen, s, M, B, D, dtype=Z.dtype)
 
-    def draw(chunk):
-        return cnmgp.sample_y_once(params, Z, x, idx, chunk, jitter, kl_mode)
+        def draw(chunk):
+            return cnmgp.sample_y_once(params, Z, x, idx, chunk, jitter, kl_mode)
 
-    return _chunked_draws(draw, noise, make_noise, n_sample, seed, device, draws_per_chunk)
+        return _chunked_draws(draw, noise, make_noise, n_sample, seed, device, draws_per_chunk)
 
 
 def sample_FY(
@@ -119,17 +132,20 @@ def sample_FY(
     inputs x, the contents of reference `NMGP.sample_FY` (nmgp_dsvi.py:
     493-580): returns (tilde_ells (S, B), Ys (S, B, D), corrs (S, B, D, D)).
     `noise` and `seed` as in `sample_Y`."""
-    params, Z, device = _setup(params, Z, device)
-    x = torch.as_tensor(np.asarray(x).reshape(-1), dtype=Z.dtype, device=device)
-    M, B, D = Z.shape[0], x.shape[0], params.num_outputs
+    with profiling.span("predict.request", kind="sample_FY", draws=n_sample) as request:
+        with profiling.span("predict.inputs"):
+            params, Z, device = _setup(params, Z, device)
+            x = torch.as_tensor(np.asarray(x).reshape(-1), dtype=Z.dtype, device=device)
+        M, B, D = Z.shape[0], x.shape[0], params.num_outputs
+        request.set(points=B)
 
-    def make_noise(gen, s):
-        return cnmgp.draw_noise(gen, s, M, B, D, all_outputs=True, dtype=Z.dtype)
+        def make_noise(gen, s):
+            return cnmgp.draw_noise(gen, s, M, B, D, all_outputs=True, dtype=Z.dtype)
 
-    def draw(chunk):
-        return cnmgp.sample_fy_once(params, Z, x, chunk, jitter, kl_mode)
+        def draw(chunk):
+            return cnmgp.sample_fy_once(params, Z, x, chunk, jitter, kl_mode)
 
-    return _chunked_draws(draw, noise, make_noise, n_sample, seed, device, draws_per_chunk)
+        return _chunked_draws(draw, noise, make_noise, n_sample, seed, device, draws_per_chunk)
 
 
 def predict_Y(
@@ -142,6 +158,9 @@ def predict_Y(
 ):
     """Plug-in posterior-mean prediction (reference predict_Y,
     nmgp_dsvi.py:666-722,927-930).  Returns (B,) on the device."""
-    params, Z, device = _setup(params, Z, device)
-    x, idx = _flat_inputs(X_list, index, Z.dtype, device)
-    return cnmgp.predict_y_mean(params, Z, x, idx, jitter)
+    with profiling.span("predict.request", kind="predict_Y", draws=0) as request:
+        with profiling.span("predict.inputs"):
+            params, Z, device = _setup(params, Z, device)
+            x, idx = _flat_inputs(X_list, index, Z.dtype, device)
+        request.set(points=x.shape[0])
+        return cnmgp.predict_y_mean(params, Z, x, idx, jitter)

@@ -8,12 +8,13 @@ variance quadratic form and its two backward kernels), and each has:
   - a wrapper (`gibbs_cuda`, `rbf_cuda`, `kron_mv_cuda`, `cholesky_cuda`,
     `chol_inv_cuda`, `quadform_diag_cuda`, `quadform_diag_dw_cuda`,
     `quadform_diag_da_cuda`) that launches the kernel for a CUDA tensor and
-    counts the launch in `LAUNCHES`; given a CPU tensor it returns the plain
-    version instead.  A launch recorded into a CUDA graph being captured
-    is not one: it is tallied apart (`take_captured`), and each replay of
-    the graph adds the tally to `LAUNCHES` and `REPLAYED`
-    (`count_replay`).  For a CUDA tensor it launches or raises: there is no
-    fallback;
+    counts the launch in `LAUNCHES`, each call the span `kernel.<name>`
+    (`utils.profiling.span`: its checks, allocations and the ctypes call);
+    given a CPU tensor it returns the plain version instead.  A launch
+    recorded into a CUDA graph being captured is not one: it is tallied
+    apart (`take_captured`), and each replay of the graph adds the tally to
+    `LAUNCHES` and `REPLAYED` (`count_replay`).  For a CUDA tensor it
+    launches or raises: there is no fallback;
   - a plain PyTorch version (`gibbs_plain`, `rbf_plain`, `kron_mv_plain`,
     `cholesky_plain`, `chol_inv_plain`, `quadform_diag_plain`,
     `quadform_diag_dw_plain`, `quadform_diag_da_plain`) with the same math.  The CPU tests run it, and
@@ -30,22 +31,27 @@ Sources live in `../csrc/*.cu` (with the shared headers `chol_blocked.cuh`,
 Each is compiled on first use with `nvcc` for `sm_90a` into `build/` at the
 repository root (one shared library per source, named by a hash of the
 sources and flags) and bound with `ctypes`; every C entry returns
-`cudaGetLastError()`.  Nothing is compiled or loaded at import time.
+`cudaGetLastError()`.  Nothing is compiled or loaded at import time.  A
+build is the span `kernel.build` and adds to the counters `kernel.builds`
+(sources compiled) and `kernel.build_s`; a load is the span `kernel.load`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import shutil
 import subprocess
 import sys
+import time
 from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, Iterable
 
 import torch
 
+from ..utils import profiling
 from . import kernels as _kernels  # sq_dist and the point layout, for the Gibbs gram
 
 __all__ = [
@@ -208,25 +214,30 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     output (with `-Xptxas=-v`: registers, shared memory, spills).  Raises
     with the compiler's output if any build fails."""
     _BUILD.mkdir(parents=True, exist_ok=True)
-    running = {}
-    for name in names:
-        out = _library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_name(out.name + ".tmp")
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        running[name] = (proc, tmp, out)
+    todo = [name for name in names if not _library_path(name).exists()]
+    if not todo:
+        return {}
+    t0 = time.perf_counter()
     logs, failures = {}, []
-    for name, (proc, tmp, out) in running.items():
-        log, _ = proc.communicate()
-        logs[name] = log
-        if proc.returncode != 0:
-            failures.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
-        else:
-            tmp.replace(out)
+    with profiling.span("kernel.build", kernels=len(todo)):
+        running = {}
+        for name in todo:
+            out = _library_path(name)
+            tmp = out.with_name(out.name + ".tmp")
+            cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )
+            running[name] = (proc, tmp, out)
+        for name, (proc, tmp, out) in running.items():
+            log, _ = proc.communicate()
+            logs[name] = log
+            if proc.returncode != 0:
+                failures.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+            else:
+                tmp.replace(out)
+    profiling.count("kernel.builds", len(todo))
+    profiling.count("kernel.build_s", time.perf_counter() - t0)
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return logs
@@ -236,7 +247,8 @@ def _library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build((name,))
-        lib = ctypes.CDLL(str(_library_path(name)))
+        with profiling.span("kernel.load", kernel=name):
+            lib = ctypes.CDLL(str(_library_path(name)))
         launch = getattr(lib, f"{name}_launch")  # attribute access caches the function
         launch.argtypes = _ARGTYPES[name]
         launch.restype = ctypes.c_int
@@ -276,6 +288,20 @@ def _launch(name: str, device: torch.device, *args) -> None:
         _CAPTURED[name] += 1  # recorded into a graph: launched at each replay
     else:
         LAUNCHES[name] += 1
+
+
+def _spanned(wrapper):
+    """`wrapper` (`<name>_cuda`) with each call the span `kernel.<name>`."""
+    name = "kernel." + wrapper.__name__[: -len("_cuda")]
+
+    @functools.wraps(wrapper)
+    def spanned(*args, **kwargs):
+        if not profiling.recording():  # the launch path's one check while off
+            return wrapper(*args, **kwargs)
+        with profiling.span(name):
+            return wrapper(*args, **kwargs)
+
+    return spanned
 
 
 def _device_type(t: torch.Tensor) -> str:
@@ -333,6 +359,7 @@ def gibbs_plain(x1, x2, ell1, ell2, scale2=1.0):
     return scale2 * pref * torch.exp(-r2 / denom)
 
 
+@_spanned
 def gibbs_cuda(x1, x2, ell1, ell2, scale2=1.0):
     """Gibbs gram through `csrc/gibbs.cu` for CUDA tensors (float32, d <= 4);
     `gibbs_plain` for CPU tensors.  Shapes as `gibbs_plain`."""
@@ -396,6 +423,7 @@ def rbf_plain(x1, x2, scale2=1.0, length_scale=1.0):
     return _pair_axis(scale2) * torch.exp(-0.5 * r2)
 
 
+@_spanned
 def rbf_cuda(x1, x2, scale2=1.0, length_scale=1.0):
     """RBF gram through `csrc/rbf.cu` for 1-D CUDA float32 inputs, all pairs
     in one launch; `rbf_plain` for CPU tensors.  Shapes as `rbf_plain`."""
@@ -480,6 +508,7 @@ def _kron_mv_operands(B, K, y):
     return Kc, Bc, yc, (c, n1, n2, m1, m2, sc, sr, sn, b_sc, y_sc), bool(lead)
 
 
+@_spanned
 def kron_mv_cuda(B, K, y):
     """`kron_mv_plain` through `csrc/kron_mv.cu` for CUDA float32 tensors
     with M1, M2 <= max_m("kron_mv") (16) and at most one leading chain axis
@@ -531,6 +560,7 @@ def cholesky_route(m: int, route=None) -> str:
     return route
 
 
+@_spanned
 def cholesky_cuda(K, route=None):
     """Lower Cholesky factor through `csrc/cholesky.cu` for a CUDA float32
     K (..., M, M), M <= max_m("cholesky"), with `cholesky_plain`'s failure
@@ -603,6 +633,7 @@ def chol_inv_route(m: int, route=None) -> str:
     return route
 
 
+@_spanned
 def chol_inv_cuda(K, route=None):
     """(L, L^-1) through `csrc/chol_inv.cu` for a CUDA float32 K (..., M,
     M), M <= max_m("chol_inv"), with the failure semantics of
@@ -678,6 +709,7 @@ def _quadform_operands(name, A, W, vbar=None):
     return ops, (s, g, m, n), batched, device
 
 
+@_spanned
 def quadform_diag_cuda(A, W):
     """`quadform_diag_plain` through `csrc/quadform_diag.cu` for CUDA float32
     tensors (M <= max_m("quadform_diag"), ~800 on the H100), without the
@@ -724,6 +756,7 @@ def quadform_diag_da_plain(A, W, vbar):
     return torch.einsum("...gmk,...gnk->...mn", W, E)
 
 
+@_spanned
 def quadform_diag_dw_cuda(A, W, vbar):
     """`quadform_diag_dw_plain` through `csrc/quadform_diag_dw.cu` for CUDA
     float32 tensors (M <= max_m("quadform_diag_dw")), recomputing C tile by
@@ -750,6 +783,7 @@ def quadform_diag_dw_cuda(A, W, vbar):
     return dW if batched else dW[0]
 
 
+@_spanned
 def quadform_diag_da_cuda(A, W, vbar):
     """`quadform_diag_da_plain` through `csrc/quadform_diag_da.cu` for CUDA
     float32 tensors (M <= max_m("quadform_diag_da")): partial sums over

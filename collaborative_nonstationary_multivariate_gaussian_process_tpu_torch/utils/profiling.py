@@ -1,4 +1,5 @@
-"""Lightweight observability: phase timers, memory probe, profiler hooks.
+"""Lightweight observability: phase timers, memory probe, profiler hooks,
+spans and counters.
 
 The JAX package's `utils/profiling.py`.  The reference times named phases
 with `time.time()` deltas under `verbose` (nmgp_dsvi.py:161-260) and prints
@@ -6,6 +7,14 @@ the process's RSS beside its periodic ELBO probe (`print_mem`,
 nmgp_dsvi.py:26-32).  This module keeps both, and adds the card's side:
 `torch.profiler` traces with CUDA activity, the CUDA caching allocator's
 counters, the FLOPs of a call and the card's peak rate.
+
+The port's layers open named spans (`span`) at their boundaries.  A span
+records only while a `torch.profiler` records in this process: it is then
+a host range of its name in the profiler's trace (so an idle gap of the
+card falls inside a named range), and a `SpanRecord` on the profiler's own
+host clock (`spans()`).  Off, a span reads no clock and records nothing.
+Counters (`count`, `counters()`) are always on; they count what happens
+outside any traced region (kernel builds, graph captures).
 
 None of these functions initializes CUDA: on a process that has not used
 the card they report the host alone.  A `PhaseTimer` around work on the
@@ -16,7 +25,9 @@ card measures the host's enqueue unless the phase ends in a
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -31,6 +42,13 @@ __all__ = [
     "device_memory_stats",
     "flops_of",
     "peak_flops_per_s",
+    "SpanRecord",
+    "recording",
+    "span",
+    "spans",
+    "clear_spans",
+    "count",
+    "counters",
 ]
 
 
@@ -83,9 +101,12 @@ class PhaseTimer:
 
     @contextlib.contextmanager
     def phase(self, name: str):
+        """Time the body as phase `name`; while a profiler records, the
+        body is also the span `name`."""
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             dt = time.perf_counter() - t0
             if name not in self.totals:
@@ -108,6 +129,135 @@ class PhaseTimer:
         return out
 
 
+# ---------------------------------------------------------------------------
+# Spans and counters
+
+# recording() -> bool: whether a `torch.profiler` records in this process,
+# and so whether spans record
+recording = torch._C._autograd._profiler_enabled
+# A span's host range in the profiler's trace: the profiler's lightweight
+# range where this torch has it (~0.75 us on a CPU where
+# `torch.profiler.record_function` takes ~7 us), else `record_function`.
+_host_range = getattr(torch._C._profiler, "_RecordFunctionFast", torch.profiler.record_function)
+
+
+class SpanRecord:
+    """One span: `name`; `start_ns` and `end_ns` on the profiler's host clock
+    (`time.time_ns()`, the clock of the kineto events' `start_ns()`; end_ns
+    is None while the span is open); `id`, in the order spans opened;
+    `parent`, the id of the innermost span open when it opened (None for a
+    root); `request`, the id of its root (a root opens a request, and every
+    span under it carries its id); `attrs`, the keywords it was opened with
+    and those `set` added."""
+
+    __slots__ = ("name", "start_ns", "end_ns", "id", "parent", "request", "attrs")
+
+    def __init__(self, name, id, parent, request, attrs):
+        self.name, self.id, self.parent, self.request, self.attrs = name, id, parent, request, attrs
+        self.start_ns = self.end_ns = None
+
+    @property
+    def duration_ns(self) -> int:
+        return self.end_ns - self.start_ns
+
+    def __repr__(self):
+        return (f"SpanRecord({self.name!r}, id={self.id}, parent={self.parent}, "
+                f"request={self.request}, start_ns={self.start_ns}, end_ns={self.end_ns}, "
+                f"attrs={self.attrs})")
+
+
+class _NoSpan:
+    """The span while no profiler records: does nothing.  Its `__enter__`
+    and `__exit__` (set below) are bound C methods, so entering and leaving
+    it runs no Python frame (a third of an off span's cost): entering gives
+    the shared object, leaving gives "" (false: an exception propagates)."""
+
+    __slots__ = ()
+
+    def set(self, **attrs) -> None:
+        pass
+
+
+_NO_SPAN = _NoSpan()
+_NoSpan.__enter__ = itertools.repeat(_NO_SPAN).__next__
+_NoSpan.__exit__ = "".format
+_SPANS: List[SpanRecord] = []
+_IDS = itertools.count(1)
+_OPEN = threading.local()  # .stack: the open spans of a thread, innermost last
+_COUNTERS: Dict[str, float] = {}
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "record", "_range")
+
+    def __init__(self, name, attrs):
+        self.name, self.attrs = name, attrs
+
+    def __enter__(self):
+        stack = getattr(_OPEN, "stack", None)
+        if stack is None:
+            stack = _OPEN.stack = []
+        id = next(_IDS)
+        if stack:
+            rec = SpanRecord(self.name, id, stack[-1].id, stack[-1].request, self.attrs)
+        else:
+            rec = SpanRecord(self.name, id, None, id, self.attrs)
+        self.record = rec
+        stack.append(rec)
+        _SPANS.append(rec)
+        self._range = _host_range(self.name)
+        rec.start_ns = time.time_ns()
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._range.__exit__(*exc)
+        self.record.end_ns = time.time_ns()
+        _OPEN.stack.pop()
+        return False
+
+    def set(self, **attrs) -> None:
+        """Add attributes known only inside the span."""
+        self.record.attrs.update(attrs)
+
+
+def span(name: str, **attrs):
+    """A context manager over a layer's work: while a `torch.profiler`
+    records in this process, the body is the host range `name` in the
+    profiler's trace and a `SpanRecord` in `spans()`, its attributes
+    `attrs` (and those the yielded object's `set(**attrs)` adds).  While no
+    profiler records, one shared object that does nothing.  A span measures
+    the host's time: it never waits for the card."""
+    if not recording():
+        return _NO_SPAN
+    return _Span(name, attrs)
+
+
+def spans() -> List[SpanRecord]:
+    """The spans recorded in this process since `clear_spans()` (kept until
+    then), in the order they opened."""
+    return list(_SPANS)
+
+
+def clear_spans() -> None:
+    _SPANS.clear()
+
+
+def count(name: str, n=1) -> None:
+    """Add `n` to counter `name`."""
+    _COUNTERS[name] = _COUNTERS.get(name, 0) + n
+
+
+def counters() -> Dict[str, float]:
+    """This process's counters, and each port kernel's launches as
+    `kernel.<name>.launches` (read from `ops.cuda_kernels.LAUNCHES`)."""
+    from ..ops import cuda_kernels
+
+    out = dict(_COUNTERS)
+    out.update({f"kernel.{name}.launches": n for name, n in cuda_kernels.LAUNCHES.items()})
+    return out
+
+
 # The recorded window of `trace` opens `CUDA_LEAD_S` before its region on a
 # card, filled with `CUDA_LEAD_PROBES` probe kernels (`spin_kernel`, from
 # `torch.cuda._sleep`), each waited for, and one last probe of about
@@ -126,10 +276,12 @@ def trace(log_dir: str):
     activity where a card is present) and write it as a Chrome trace,
     `log_dir/trace_<pid>.json` (viewable in Perfetto or chrome://tracing).
     Yields the profiler; its `key_averages()` sums the device time by
-    kernel.  The region is the host range `REGION_NAME`.  The port's own
-    kernels are launched through ctypes, past the PyTorch dispatcher: the
-    trace holds their device activity (CUPTI sees every launch) but no
-    operator of them on the host.
+    kernel.  The region is the host range `REGION_NAME`; the port's spans
+    opened in it are host ranges of their names in the trace, and
+    `spans()` holds their records.  The port's own kernels are launched
+    through ctypes, past the PyTorch dispatcher: the trace holds their
+    device activity (CUPTI sees every launch) and, on the host, the span
+    `kernel.<name>` of their wrapper, but no operator.
 
     On a card the profiler warms up on a throw-away launch, and the
     recorded window opens `CUDA_LEAD_S` before the region, on probe kernels

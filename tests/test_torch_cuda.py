@@ -1279,3 +1279,61 @@ def test_gloo_two_ranks_on_the_card(dev):
     assert r0["chees"]["step_size"] == r1["chees"]["step_size"]
     for name, m in r0["smc"]["models"].items():
         assert m["log_z"] == r1["smc"]["models"][name]["log_z"] and m["last_beta"] == 1.0
+
+
+# ---------------------------------------------------------------------------
+# The port's spans and counters on the card (`utils/profiling`)
+# ---------------------------------------------------------------------------
+
+
+def test_a_capture_counts_once(dev):
+    """Capturing the trainer's graphs adds 1 to the counter `dsvi.captures`
+    and its seconds to `dsvi.capture_s`; a second call on the same tensors
+    replays them and adds nothing."""
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils import (
+        profiling,
+    )
+
+    params, mask, Z, x, y, idx, run, _ = _scan_problem(dev, torch.float32)
+    before = profiling.counters()
+    gen = _gen(dev, 3)
+    run(params, mask, Z, x, y, idx, gen, 1)
+    after = profiling.counters()
+    assert after["dsvi.captures"] == before.get("dsvi.captures", 0) + 1
+    (graphs,) = run.graphs.values()
+    assert after["dsvi.capture_s"] == pytest.approx(before.get("dsvi.capture_s", 0.0)
+                                                    + graphs.capture_s)
+    run(params, mask, Z, x, y, idx, gen, 1)
+    again = profiling.counters()
+    assert again["dsvi.captures"] == after["dsvi.captures"]
+    assert again["dsvi.capture_s"] == after["dsvi.capture_s"]
+
+
+def test_a_kernel_span_encloses_its_launch(dev):
+    """Under the profiler the span `kernel.gibbs` of one `gibbs_cuda` call
+    encloses the call's kernel launch on the host, and the kernel starts on
+    the card after the span starts: the spans are on the profiler's clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils import (
+        profiling,
+    )
+
+    g = _gen(dev, 5)
+    x1, x2 = torch.rand(256, device=dev, generator=g), torch.rand(100, device=dev, generator=g)
+    l1 = torch.exp(0.3 * torch.randn(4, 256, device=dev, generator=g))
+    l2 = torch.exp(0.3 * torch.randn(4, 100, device=dev, generator=g))
+    ck.gibbs_cuda(x1, x2, l1, l2)  # built and loaded
+    torch.cuda.synchronize()
+    profiling.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ck.gibbs_cuda(x1, x2, l1, l2)
+        torch.cuda.synchronize()
+    (span,) = [s for s in profiling.spans() if s.name == "kernel.gibbs"]
+    events = prof.profiler.kineto_results.events()
+    launches = [e for e in events if e.name().startswith("cudaLaunchKernel")]
+    assert launches and all(span.start_ns <= e.start_ns() and e.end_ns() <= span.end_ns
+                            for e in launches), (span, [(e.start_ns(), e.end_ns()) for e in launches])
+    kernels = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA
+               and "gibbs_kernel" in e.name()]
+    assert len(kernels) == 1 and kernels[0].start_ns() > span.start_ns
