@@ -101,8 +101,8 @@ within 1.25x the JAX package's recorded run; chol_inv's float64 refactor
 of a float32 failure on the HCP tilde_ell prior at trained variances
 against float64; `negative_selbo` at an HCP and a PM2.5-full batch
 against float64 at three row orders;
-6a/6b/6c at (G, N) = (105, 1000) and (15, 1000) and gibbs (1, 1000, 100)
-timed; `scripts/baseline_parity.py` through `drivers/baseline_parity.py`
+6a/6b/6c and the fused backward at (G, N) = (105, 1000) and (15, 1000) and
+gibbs (1, 1000, 100) timed; `scripts/baseline_parity.py` through `drivers/baseline_parity.py`
 in float32 with the kernels against its float64 run (its Adam steps cut 10x
 in both, BASELINE_STEP_CUT), the baselines'
 likelihoods and gradients against float64, `fit_sicm` at PM2.5-sub width
@@ -147,8 +147,12 @@ from unittest import mock
 import numpy as np
 import torch
 
-# The kernels a DSVI training step launches (the rest serve the other paths).
-TRAIN_KERNELS = ("gibbs", "chol_inv", "quadform_diag", "quadform_diag_dw", "quadform_diag_da")
+# The kernels a DSVI training step launches (the rest serve the other paths):
+# the quadform's backward is the fused kernel wherever M is within its limit.
+TRAIN_KERNELS = ("gibbs", "chol_inv", "quadform_diag", "quadform_diag_bwd")
+# ... and at M = 200, where the measured route (`quadform_bwd_route`) keeps 6b
+# and 6c
+TRAIN_KERNELS_M200 = ("gibbs", "chol_inv", "quadform_diag", "quadform_diag_dw", "quadform_diag_da")
 # scripts/run_mcmc_sim.py's default run: N, chains, max depth, and its
 # hyperparameters (:115-118, drivers/mcmc_sim.HYPERS) as they are; its 400
 # warmup and 400 samples cut to FB_WARMUP and FB_SAMPLES.  Every transition of that run saturates the
@@ -187,6 +191,8 @@ PEAK_TF32_PER_S = 495e12  # dense, on the tensor cores
 # C = A^T W (three pieces an operand), three for the product after it
 # (3xTF32); csrc/qf_mma.cuh
 QF_TF32_PRODUCTS = (6 + 3) / 2
+# and in the fused backward, over its three products: 6 for C, 3 and 3 after it
+QF_FUSED_TF32_PRODUCTS = (6 + 3 + 3) / 3
 EPS32 = float(torch.finfo(torch.float32).eps)
 D_ECOG, M_ECOG, B_ECOG = 78, 100, 512  # scripts/bench_ecog.py:46-52
 M_ECOG200 = 200  # the reference's M=200 ECoG block (scripts/ecog_per_m_study.py:11)
@@ -355,13 +361,15 @@ def recording(ck, names, calls):
 
 
 def backward_kernels(ck, gen, dev, M=M_ECOG, G=None, N=None):
-    """The quadform's two backward kernels at a training shape (A (M, N),
+    """The quadform's backward kernels at a training shape (A (M, N),
     lower-triangular W (G, M, M), random vbar; by default ECoG's G = 3003
-    and N = 512), each f32 result held against float64 on the same inputs
-    (kernel at most 3x the plain version's error + 1e-6 of max), then
-    timed.  Returns {name: (timing row, max |kernel - plain|, tensor-core
-    bounds)}: the bounds in ms of the kernels' split and of 3xTF32
-    throughout, on the dense TF32 rate."""
+    and N = 512): 6b, 6c and the fused backward (dA and dW from one C).
+    Each f32 result is held against float64 on the same inputs (kernel at
+    most 3x the plain version's error + 1e-6 of max; the fused kernel's dA
+    and dW each), dW zero above the diagonal, the fused kernel's two
+    launches bitwise equal; then each is timed.  Returns {name: (timing
+    row, max |kernel - plain|, tensor-core bounds)}: the bounds in ms of the
+    kernel's split and of 3xTF32 throughout, on the dense TF32 rate."""
     G = D_ECOG * (D_ECOG - 1) // 2 if G is None else G
     N = B_ECOG if N is None else N
     shape = f"({G},{M},{M})x({M},{N})"
@@ -371,40 +379,105 @@ def backward_kernels(ck, gen, dev, M=M_ECOG, G=None, N=None):
     A64, W64, v64 = A.double(), W.double(), vbar.double()
     # the library yardstick, the einsum composition of the plain versions
     C = lambda: torch.einsum("mn,gmk->gnk", A, W)  # noqa: E731
+
+    def both():
+        E = 2.0 * vbar[..., None] * C()
+        return torch.einsum("gmk,gnk->mn", W, E), torch.einsum("mn,gnk->gmk", A, E)
+
     library = {
         "quadform_diag_dw": lambda: torch.einsum("mn,gnk->gmk", A, 2.0 * vbar[..., None] * C()),
         "quadform_diag_da": lambda: torch.einsum("gmk,gnk->mn", W, 2.0 * vbar[..., None] * C()),
+        "quadform_diag_bwd": both,
     }
     tri = 4 * G * M * (M + 1) // 2
     n_bytes = {
         "quadform_diag_dw": 4 * (M * N + G * N + G * M * M) + tri,
         "quadform_diag_da": 4 * (M * N + G * N + M * N) + tri,
+        "quadform_diag_bwd": 4 * (2 * M * N + G * N + G * M * M) + tri,
     }
     ops = 2 * G * N * M * (M + 1)  # M (M + 1) FMAs per (g, n): C, then the product
-    tc = {"tc_bound_ms": QF_TF32_PRODUCTS * ops / PEAK_TF32_PER_S * 1e3,
-          "tc3_bound_ms": 3 * ops / PEAK_TF32_PER_S * 1e3}
+    # TF32 products per FMA of the triangle: 6b and 6c (6 + 3) over two
+    # products; the fused kernel 6 + 3 + 3 over three
+    products = {"quadform_diag_dw": (QF_TF32_PRODUCTS, 2),
+                "quadform_diag_da": (QF_TF32_PRODUCTS, 2),
+                "quadform_diag_bwd": (QF_FUSED_TF32_PRODUCTS, 3)}
     out = {}
-    for name in ("quadform_diag_dw", "quadform_diag_da"):
+    for name in ("quadform_diag_dw", "quadform_diag_da", "quadform_diag_bwd"):
         kern, plain = getattr(ck, f"{name}_cuda"), getattr(ck, f"{name}_plain")
+        per, n_prod = products[name]
+        n_ops = n_prod * ops // 2
+        tc = {"tc_bound_ms": per * n_ops / PEAK_TF32_PER_S * 1e3,
+              "tc3_bound_ms": 3 * n_ops / PEAK_TF32_PER_S * 1e3}
         got, ref, ref64 = kern(A, W, vbar), plain(A, W, vbar), plain(A64, W64, v64)
+        if name == "quadform_diag_bwd":
+            again = kern(A, W, vbar)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{name} {shape}: two launches bitwise equal")
+            del again
+            parts = tuple(zip(("dA", "dW"), got, ref, ref64))
+        else:
+            parts = ((name, got, ref, ref64),)
         torch.cuda.synchronize()
-        err_k, err_p = rel_to_max(got, ref64)[1], rel_to_max(ref, ref64)[1]
-        abs_err = rel_to_max(got, ref)[0]
-        check(err_k <= 3 * err_p + 1e-6 and bool(torch.isfinite(got).all()),
-              f"{name} {shape} vs float64, of max: kernel {err_k:.3e}, plain "
-              f"{err_p:.3e}; tol 3x plain + 1e-6")
-        if name == "quadform_diag_dw":
-            check(torch.equal(got, got.tril()), "quadform_diag_dw writes zeros above the diagonal")
-        del got, ref, ref64
+        abs_err = 0.0
+        for what, g_, r_, r64 in parts:
+            err_k, err_p = rel_to_max(g_, r64)[1], rel_to_max(r_, r64)[1]
+            abs_err = max(abs_err, rel_to_max(g_, r_)[0])
+            check(err_k <= 3 * err_p + 1e-6 and bool(torch.isfinite(g_).all()),
+                  f"{name} {what} {shape} vs float64, of max: kernel {err_k:.3e}, plain "
+                  f"{err_p:.3e}; tol 3x plain + 1e-6")
+        dW = got[1] if name == "quadform_diag_bwd" else got if name == "quadform_diag_dw" else None
+        if dW is not None:
+            check(torch.equal(dW, dW.tril()), f"{name} writes zeros above dW's diagonal")
+        del got, ref, ref64, parts, dW
         row = (device_ms(lambda: kern(A, W, vbar)), device_ms(lambda: plain(A, W, vbar)),
-               device_ms(library[name]), bound_ms(n_bytes[name], ops))
+               device_ms(library[name]), bound_ms(n_bytes[name], n_ops))
         print(f"time {name} {shape}: kernel {row[0]:.4f} ms on the device, plain "
               f"{row[1]:.4f} ms, library {row[2]:.4f} ms, bound {row[3][0]:.4f} ms ({row[3][1]}), "
-              f"{row[3][0] / row[0]:.1%} of bound, {ops / (row[0] * 1e-3) / 1e9:.0f} GFLOP/s; "
+              f"{row[3][0] / row[0]:.1%} of bound, {n_ops / (row[0] * 1e-3) / 1e9:.0f} GFLOP/s; "
               f"tensor-core bound {tc['tc_bound_ms']:.4f} ms ({tc['tc_bound_ms'] / row[0]:.1%}), "
               f"3xTF32 throughout {tc['tc3_bound_ms']:.4f} ms")
         out[name] = (row, abs_err, tc)
+    pair = out["quadform_diag_dw"][0][0] + out["quadform_diag_da"][0][0]
+    print(f"time quadform backward {shape}: fused {out['quadform_diag_bwd'][0][0]:.4f} ms, "
+          f"the pair 6b + 6c {pair:.4f} ms ({pair / out['quadform_diag_bwd'][0][0]:.2f}x)")
     return out
+
+
+# The shapes of the fused backward's gate (G, M, N): ECoG's two group sets,
+# M = 200, a data-parallel rank, PM2.5-sub's offdiagonal groups, HCP's
+BWD_SHAPES = ((3003, 100, 512), (78, 100, 512), (3003, 200, 512), (3003, 100, 256),
+              (15, 100, 2000), (105, 100, 1000))
+
+
+def bwd_main() -> int:
+    """The quadform backward kernels' gate and times at BWD_SHAPES alone, with
+    their build (~1-2 min):
+    python3 -u -c 'import sys, chip_smoke; sys.exit(chip_smoke.bwd_main())'"""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"card: {smi}")
+    dev = torch.device("cuda")
+    names = ("quadform_diag_dw", "quadform_diag_da", "quadform_diag_bwd")
+    for name, log in ck.build(names).items():
+        print(f"build {name}:\n{log}")
+    print(f"max_m: {ck.max_m('quadform_diag_bwd')} fused, {ck.max_m('quadform_diag_dw')} 6b, "
+          f"{ck.max_m('quadform_diag_da')} 6c ({smi})")
+    for i, (G, M, N) in enumerate(BWD_SHAPES):
+        backward_kernels(ck, torch.Generator(device=dev).manual_seed(20 + i), dev, M, G=G, N=N)
+    if FAILURES:
+        print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
+        return 1
+    return 0
 
 
 def path_qf_inputs(dev, M, N, G, seed):
@@ -1136,7 +1209,8 @@ def scan_epochs_phase(ck, td, tc, dev, smi):
 def ecog_m200(ck, td, tc, dev, smi):
     """The ECoG configuration the reference runs at M = 200 inducing points
     (D=78, B=512, Z = linspace(0, 800, 200)): one `inference()` epoch from
-    `init_params`, all five DSVI kernels launched and the losses finite,
+    `init_params`, the DSVI kernels of M = 200 (TRAIN_KERNELS_M200)
+    launched and the losses finite,
     then steps/s with the kernels and the plain versions in turns.  Returns
     the epoch's launches."""
     X_list, Y_list = ecog_lists()
@@ -1149,7 +1223,7 @@ def ecog_m200(ck, td, tc, dev, smi):
     epoch_s = time.perf_counter() - t0
     launched = dict(ck.LAUNCHES)
     losses = np.asarray(res.loss_list)
-    check(all(launched[k] > 0 for k in TRAIN_KERNELS) and bool(np.all(np.isfinite(losses))),
+    check(all(launched[k] > 0 for k in TRAIN_KERNELS_M200) and bool(np.all(np.isfinite(losses))),
           f"ECoG M=200 epoch by inference() (D=78, N=62,400, M=200, B=512, {len(losses)} steps, "
           f"{epoch_s:.2f} s with set-up): finite losses {losses[0]:.4e} .. {losses[-1]:.4e}, "
           f"launches {launched}")
@@ -2481,8 +2555,8 @@ def workload_phase(ck, td, tc, dev, smi):
     """`drivers/run_workload.py` at ECoG (with the spatial analysis), HCP and
     PM2.5-full width, each held to the gates of WORKLOAD_RUNS;
     `chol_inv_refactor_check`; one `negative_selbo` value and gradient at an
-    HCP and a PM2.5-full batch against float64; 6a/6b/6c at WORKLOAD_QF_SHAPES and gibbs at B = 1000
-    timed.  Returns (the launches of the three runs, timing entries by
+    HCP and a PM2.5-full batch against float64; 6a/6b/6c and the fused
+    backward at WORKLOAD_QF_SHAPES and gibbs at B = 1000 timed.  Returns (the launches of the three runs, timing entries by
     kernel)."""
     import importlib.util
 
@@ -2550,7 +2624,8 @@ def workload_phase(ck, td, tc, dev, smi):
                 hyper["pm25"]["hyperpars"], dev)
 
     gen = torch.Generator(device=dev).manual_seed(13)
-    more = {"quadform_diag": [], "quadform_diag_dw": [], "quadform_diag_da": [], "gibbs": []}
+    more = {"quadform_diag": [], "quadform_diag_dw": [], "quadform_diag_da": [],
+            "quadform_diag_bwd": [], "gibbs": []}
     for G, N in WORKLOAD_QF_SHAPES:
         A = torch.randn(1, M_PM, N, device=dev, generator=gen)
         W = 0.1 * torch.randn(1, G, M_PM, M_PM, device=dev, generator=gen).tril()
@@ -2816,7 +2891,8 @@ MD_TIMEOUT_S = 420
 MD_RATE_BAND = 0.03
 # the training kernels' names in a profiler trace
 TRACE_NAMES = {"gibbs": "gibbs_kernel", "chol_inv": "chol_inv", "quadform_diag": "quadform_diag_kernel",
-               "quadform_diag_dw": "quadform_diag_dw", "quadform_diag_da": "quadform_diag_da"}
+               "quadform_diag_dw": "quadform_diag_dw", "quadform_diag_da": "quadform_diag_da",
+               "quadform_diag_bwd": "quadform_diag_bwd_kernel"}
 
 
 def native_check(smi):
@@ -2992,8 +3068,8 @@ def per_rank_shapes(ck, dev, smi):
     """The kernels at the shapes one of two ranks gives them: 6a/6b/6c at
     ECoG's N = 256 rows, chol_inv and gibbs at SMC's 256 particles of the
     SVC model.  Each f32 result is held against float64 on the same inputs
-    (at most 3x the plain f32 version's error + 1e-6 of max; 6b and 6c in
-    `backward_kernels`), then timed.  Returns timing entries by kernel."""
+    (at most 3x the plain f32 version's error + 1e-6 of max; 6b, 6c and the
+    fused backward in `backward_kernels`), then timed.  Returns timing entries by kernel."""
     gen = torch.Generator(device=dev).manual_seed(15)
     N, G = B_ECOG // MD_RANKS, D_ECOG * (D_ECOG - 1) // 2
     more = {"quadform_diag": []}
@@ -3310,6 +3386,8 @@ def main() -> int:
     gibbs_err, gibbs_rows = gibbs_shapes(ck, torch.Generator(device=dev).manual_seed(8), dev)
     rbf_err, rbf_rows = rbf_shapes(ck, torch.Generator(device=dev).manual_seed(10), dev)
     backward200 = backward_kernels(ck, gen, dev, M_ECOG200)
+    # ECoG's diagonal groups and latent functions, G = 78
+    backward78 = backward_kernels(ck, torch.Generator(device=dev).manual_seed(16), dev, G=D_ECOG)
     # PM2.5-sub's offdiagonal groups, where 6b has lost to its einsums
     backward_pm = backward_kernels(ck, torch.Generator(device=dev).manual_seed(12), dev, M_PM,
                                    G=D_PM * (D_PM - 1) // 2, N=B_PM)
@@ -3516,9 +3594,9 @@ def main() -> int:
         ("chol_inv", f"{tpu}:357", max(chol_err, fb["chol_inv (4,200,200)"][1])),
         ("quadform_diag", f"{tpu}:578", max(qf_err, qf64_err)),
     ]
-    for n, line in (("quadform_diag_dw", 648), ("quadform_diag_da", 667)):
+    for n, line in (("quadform_diag_dw", 648), ("quadform_diag_da", 667), ("quadform_diag_bwd", 636)):
         rows.append((n, f"{tpu}:{line}",
-                     max(backward[n][1], backward200[n][1], backward_pm[n][1])))
+                     max(backward[n][1], backward200[n][1], backward_pm[n][1], backward78[n][1])))
         times[n] = backward[n][0]
         tc_bounds[n] = backward[n][2]
         k_ms, p_ms, l_ms, (b_ms, b_by) = backward200[n][0]
@@ -3528,6 +3606,9 @@ def main() -> int:
         earlier.append({"at": f"PM2.5-sub G={D_PM * (D_PM - 1) // 2} M={M_PM} N={B_PM}",
                         "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
                         "bound_by": b_by, **backward_pm[n][2]})
+        k_ms, p_ms, l_ms, (b_ms, b_by) = backward78[n][0]
+        earlier.append({"at": f"G={D_ECOG}", "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                        "bound_ms": b_ms, "bound_by": b_by, **backward78[n][2]})
         more[n] = earlier + more.get(n, [])
     kernels = []
     for n, r, e in rows:

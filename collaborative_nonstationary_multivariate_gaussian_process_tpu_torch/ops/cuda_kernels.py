@@ -3,13 +3,15 @@
 The counterpart of the JAX package's `ops/pallas_kernels.py`.  Every TPU
 kernel there has one here (the Gibbs and RBF grams, the Kronecker matvec,
 the batched Cholesky, the fused Cholesky + triangular inverse, the
-variance quadratic form and its two backward kernels), and each has:
+variance quadratic form and its two backward kernels, and the fused
+backward that computes both of its gradients from one C), and each has:
 
   - a wrapper (`gibbs_cuda`, `rbf_cuda`, `kron_mv_cuda`, `cholesky_cuda`,
     `chol_inv_cuda`, `quadform_diag_cuda`, `quadform_diag_dw_cuda`,
-    `quadform_diag_da_cuda`) that launches the kernel for a CUDA tensor and
-    counts the launch in `LAUNCHES`, each call the span `kernel.<name>`
-    (`utils.profiling.span`: its checks, allocations and the ctypes call);
+    `quadform_diag_da_cuda`, `quadform_diag_bwd_cuda`) that launches the
+    kernel for a CUDA tensor and counts the launch in `LAUNCHES`, each call
+    the span `kernel.<name>` (`utils.profiling.span`: its checks,
+    allocations and the ctypes call);
     given a CPU tensor it returns the plain version instead.  A launch
     recorded into a CUDA graph being captured is not one: it is tallied
     apart (`take_captured`), and each replay of the graph adds the tally to
@@ -17,7 +19,8 @@ variance quadratic form and its two backward kernels), and each has:
     launches or raises: there is no fallback;
   - a plain PyTorch version (`gibbs_plain`, `rbf_plain`, `kron_mv_plain`,
     `cholesky_plain`, `chol_inv_plain`, `quadform_diag_plain`,
-    `quadform_diag_dw_plain`, `quadform_diag_da_plain`) with the same math.  The CPU tests run it, and
+    `quadform_diag_dw_plain`, `quadform_diag_da_plain`,
+    `quadform_diag_bwd_plain`) with the same math.  The CPU tests run it, and
     `chip_smoke.py` holds each kernel against it on the card.
 
 Which of the two an op of `ops/` runs is one stated rule, `use_kernel`
@@ -89,12 +92,18 @@ __all__ = [
     "quadform_diag_dw_plain",
     "quadform_diag_da_cuda",
     "quadform_diag_da_plain",
+    "quadform_diag_bwd_cuda",
+    "quadform_diag_bwd_plain",
+    "quadform_bwd_route",
+    "QF_BWD_FUSED_MAX_M",
+    "QF_BWD_FUSED_MAX_N",
+    "QF_BWD_FUSED_MAX_G_WIDE",
     "max_m",
 ]
 
 KERNELS = (
     "gibbs", "rbf", "kron_mv", "cholesky", "chol_inv", "quadform_diag",
-    "quadform_diag_dw", "quadform_diag_da",
+    "quadform_diag_dw", "quadform_diag_da", "quadform_diag_bwd",
 )
 
 # The routes of `csrc/cholesky.cu` (its `route` argument): one block per
@@ -113,6 +122,15 @@ CHOL_INV_ROUTES = {"resident": 0, "multi_cta": 1}
 # 4 the resident route is faster through M = 224 and the multi-CTA one at
 # M = 240, its limit (chip_smoke.py's crossover table; PERF.md).
 CHOL_INV_CROSSOVER_M = 240
+
+# The quadform backward's route (`quadform_bwd_route`): on the H100 the fused
+# kernel beat 6b + 6c at M = 64 and 100 for every G up to 3003 where N <= 512
+# (one cluster of its 64-column blocks holds N), and at N = 1000 and 2000 for
+# G <= 15, and lost at G = 105 and beyond there, and at M = 120 and 200
+# (PERF.md, the fused kernel's row).
+QF_BWD_FUSED_MAX_M = 112
+QF_BWD_FUSED_MAX_N = 512
+QF_BWD_FUSED_MAX_G_WIDE = 15
 
 # The largest input dimension the Gibbs kernel takes (the JAX function takes any).
 GIBBS_MAX_DIM = 4
@@ -149,6 +167,8 @@ _ARGTYPES = {
     "quadform_diag_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # A, W, vbar, partial, dA, s, g, m, n, chunks, stream
     "quadform_diag_da": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # A, W, vbar, dA_part, dW_part, dA, dW, s, g, m, n, stream
+    "quadform_diag_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _MAX_M: Dict[tuple, int] = {}
@@ -808,3 +828,64 @@ def quadform_diag_da_cuda(A, W, vbar):
     _launch("quadform_diag_da", device, Ab.data_ptr(), Wb.data_ptr(), vb.data_ptr(),
             partial.data_ptr(), dA.data_ptr(), s, g, m, n, chunks)
     return dA if batched else dA[0]
+
+
+def quadform_diag_bwd_plain(A, W, vbar):
+    """(dA, dW) of `quadform_diag_plain` for the cotangent vbar from one C, in
+    plain PyTorch: the math of `quadform_diag_da_plain` and
+    `quadform_diag_dw_plain` (dW's lower triangle, zero above it).  Shapes
+    as `quadform_diag_dw_plain`.  Builds the (..., G, N, M) intermediates."""
+    C = torch.einsum("...mn,...gmk->...gnk", A, W)
+    E = 2.0 * vbar[..., None] * C
+    return (torch.einsum("...gmk,...gnk->...mn", W, E),
+            torch.einsum("...mn,...gnk->...gmk", A, E).tril())
+
+
+@_spanned
+def quadform_diag_bwd_cuda(A, W, vbar):
+    """`quadform_diag_bwd_plain` through `csrc/quadform_diag_bwd.cu` for CUDA
+    float32 tensors (M <= max_m("quadform_diag_bwd")): C once a tile for
+    both gradients, on the tensor cores by split TF32 operands, dW's panels
+    summed over N in a thread-block cluster and dA's over chunks of groups
+    in a fixed order (deterministic); `quadform_diag_bwd_plain` for CPU
+    tensors.  W must be lower-triangular; dW is its lower triangle, as
+    `quadform_diag_dw_cuda` says.  Returns (dA, dW)."""
+    if not A.is_cuda:
+        return quadform_diag_bwd_plain(A, W, vbar)
+    (Ab, Wb, vb), (s, g, m, n), batched, device = _quadform_operands(
+        "quadform_diag_bwd", A, W, vbar
+    )
+    if g == 0 or m == 0 or n == 0:
+        dA = torch.zeros((s, m, n), dtype=torch.float32, device=device)
+        dW = torch.zeros((s, g, m, m), dtype=torch.float32, device=device)
+        return (dA, dW) if batched else (dA[0], dW[0])
+    lib = _library("quadform_diag_bwd")
+    with torch.cuda.device(device):  # the cut of the launch, from the shape and the card
+        parts = lib.quadform_diag_bwd_parts(s, g, m, n)
+        supers = lib.quadform_diag_bwd_supers(s, g, m, n)
+    if parts < 1 or supers < 1:
+        raise RuntimeError(f"quadform_diag_bwd: could not plan ({s}, {g}, {m}, {n}) on {device}")
+    # scratch from torch.empty, so a CUDA graph's capture takes it from its pool
+    dA_part = torch.empty((s, parts, m, n), dtype=torch.float32, device=device)
+    dW_part = (torch.empty((supers, s, g, m, m), dtype=torch.float32, device=device)
+               if supers > 1 else None)
+    dA = torch.empty((s, m, n), dtype=torch.float32, device=device)
+    dW = torch.empty((s, g, m, m), dtype=torch.float32, device=device)
+    _launch("quadform_diag_bwd", device, Ab.data_ptr(), Wb.data_ptr(), vb.data_ptr(),
+            dA_part.data_ptr(), None if dW_part is None else dW_part.data_ptr(),
+            dA.data_ptr(), dW.data_ptr(), s, g, m, n)
+    return (dA, dW) if batched else (dA[0], dW[0])
+
+
+def quadform_bwd_route(A, W) -> str:
+    """Which kernels the quadform's backward launches for CUDA float32
+    operands when both gradients are needed: "fused"
+    (`quadform_diag_bwd_cuda`) or "pair" (6b and 6c), by the rule measured
+    on the H100 (PERF.md): the fused kernel where M <= QF_BWD_FUSED_MAX_M
+    and one cluster of its blocks holds N (N <= QF_BWD_FUSED_MAX_N) or the
+    groups are few (G <= QF_BWD_FUSED_MAX_G_WIDE); the pair elsewhere, where
+    the fused kernel lost (M = 120 and 200, and G = 105 at N = 1000)."""
+    m, n, g = A.shape[-2], A.shape[-1], W.shape[-3]
+    fused = m <= min(QF_BWD_FUSED_MAX_M, max_m("quadform_diag_bwd", A.device)) and (
+        n <= QF_BWD_FUSED_MAX_N or g <= QF_BWD_FUSED_MAX_G_WIDE)
+    return "fused" if fused else "pair"

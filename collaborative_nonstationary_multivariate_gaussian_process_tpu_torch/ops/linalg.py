@@ -439,12 +439,15 @@ def mgp_mean_var_white(A, Lp_inv, d11, mu, scale_tril):
 
 
 class _QuadformDiag(torch.autograd.Function):
-    """V = sum_k (A^T W_g)^2 by the forward quadform kernel; the backward is
-    the two backward kernels (dA, and dW's lower triangle); each the plain
-    version off `cuda_kernels.use_kernel`'s rule.  Saves A and W,
-    never C: the kernels recompute C tile by tile, as the JAX package's
-    `_qf_bwd_rule` (pallas_kernels.py:636-684) does, so the (G, N, M)
-    intermediate is never held."""
+    """V = sum_k (A^T W_g)^2 by the forward quadform kernel.  The backward,
+    where both gradients are needed, is the fused backward kernel (dA and
+    dW's lower triangle from one C) at the shapes where
+    `cuda_kernels.quadform_bwd_route` picks it, else the two backward
+    kernels; one gradient alone is its own kernel; each the plain version
+    off `cuda_kernels.use_kernel`'s rule.  Saves A and W, never C: the
+    kernels recompute C tile by tile, as the JAX package's `_qf_bwd_rule`
+    (pallas_kernels.py:636-684) does, so the (G, N, M) intermediate is
+    never held."""
 
     @staticmethod
     def forward(ctx, A, W):
@@ -456,6 +459,11 @@ class _QuadformDiag(torch.autograd.Function):
         A, W = ctx.saved_tensors
         vbar = vbar.contiguous()  # it may arrive expanded
         dA = dW = None
+        if ctx.needs_input_grad[0] and ctx.needs_input_grad[1]:
+            fused = (not cuda_kernels.use_kernel(A, W, vbar)
+                     or cuda_kernels.quadform_bwd_route(A, W) == "fused")
+            if fused:
+                return cuda_kernels.pick("quadform_diag_bwd", A, W, vbar)(A, W, vbar)
         if ctx.needs_input_grad[0]:
             dA = cuda_kernels.pick("quadform_diag_da", A, W, vbar)(A, W, vbar)
         if ctx.needs_input_grad[1]:

@@ -26,8 +26,9 @@ from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils.s
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
 
-# the kernels a DSVI training step launches
-TRAIN_KERNELS = ("gibbs", "chol_inv", "quadform_diag", "quadform_diag_dw", "quadform_diag_da")
+# the kernels a DSVI training step launches (the quadform's backward as the
+# fused kernel: both gradients, M within its limit)
+TRAIN_KERNELS = ("gibbs", "chol_inv", "quadform_diag", "quadform_diag_bwd")
 
 
 @pytest.fixture
@@ -318,6 +319,73 @@ def test_quadform_backward_kernels_against_float64(dev, M, N, G, S):
         assert err_k <= 3 * err_p + 1e-6, (name, err_k, err_p)
         assert torch.equal(got, kern(A, W, vbar))  # deterministic
         del got, ref
+
+
+@pytest.mark.parametrize(
+    "S, M, N, G",
+    [(1, 1, 1, 1), (2, 13, 70, 5), (1, 100, 512, 40), (3, 24, 129, 2), (1, 9, 65, 33),
+     (1, 112, 600, 3), (1, 113, 65, 3), (2, 200, 300, 5), (1, 100, 1000, 7), (1, "max", 65, 3)],
+)
+def test_quadform_fused_backward_matches_plain(dev, S, M, N, G):
+    """The fused backward's (dA, dW) against its plain version: ragged N
+    tiles, k-panels and clusters, N beyond one cluster (several supers),
+    both variants (M up to 112, and above) and the largest M; one launch
+    counted; two launches bitwise equal; without a draw dimension the
+    plain version's values (the launch is cut by S, so the order of its
+    sums may differ)."""
+    if M == "max":
+        M = ck.max_m("quadform_diag_bwd")
+    A, W, vbar = _qf_inputs(dev, S, M, N, G, M * N + G)
+    before = dict(ck.LAUNCHES)
+    dA, dW = ck.quadform_diag_bwd_cuda(A, W, vbar)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["quadform_diag_bwd"] == before["quadform_diag_bwd"] + 1
+    pA, pW = ck.quadform_diag_bwd_plain(A, W, vbar)
+    assert _close(dA, pA, 1e-4) and _close(dW, pW, 1e-4)
+    assert torch.equal(dW, dW.tril())
+    again = ck.quadform_diag_bwd_cuda(A, W, vbar)
+    assert torch.equal(again[0], dA) and torch.equal(again[1], dW)  # deterministic
+    dA0, dW0 = ck.quadform_diag_bwd_cuda(A[0], W[0], vbar[0])  # no draw dimension
+    assert dA0.shape == (M, N) and dW0.shape == (G, M, M)
+    assert _close(dA0, pA[0], 1e-4) and _close(dW0, pW[0], 1e-4)
+
+
+@pytest.mark.parametrize("G, M, N", [(3003, 100, 512), (15, 100, 2000)])
+def test_quadform_fused_backward_against_float64(dev, G, M, N):
+    """chip_smoke.py's gate at ECoG's and PM2.5-sub's offdiagonal shapes:
+    dA and dW each at most 3x as far from float64 as the plain float32
+    version, + 1e-6 of max; dW zero above the diagonal; two launches
+    bitwise equal."""
+    g = _gen(dev, M * N + G)
+    A = torch.randn(M, N, device=dev, generator=g)
+    W = 0.1 * torch.randn(G, M, M, device=dev, generator=g).tril()
+    vbar = torch.randn(G, N, device=dev, generator=g)
+    got = ck.quadform_diag_bwd_cuda(A, W, vbar)
+    again = ck.quadform_diag_bwd_cuda(A, W, vbar)
+    plain = ck.quadform_diag_bwd_plain(A, W, vbar)
+    ref = ck.quadform_diag_bwd_plain(A.double(), W.double(), vbar.double())
+    for what, k, p, r in zip(("dA", "dW"), got, plain, ref):
+        scale = float(r.abs().max())
+        err_k = float((k.double() - r).abs().max()) / scale
+        err_p = float((p.double() - r).abs().max()) / scale
+        assert err_k <= 3 * err_p + 1e-6, (what, err_k, err_p)
+    assert torch.equal(got[1], got[1].tril())
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_fused_backward_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    A, W, vbar = _qf_inputs(dev, 1, 6, 10, 2, 0)
+    with pytest.raises(TypeError):
+        ck.quadform_diag_bwd_cuda(A.double(), W.double(), vbar.double())
+    with pytest.raises(ValueError):
+        ck.quadform_diag_bwd_cuda(A, W, vbar[..., :-1])
+    with pytest.raises(ValueError):
+        ck.quadform_diag_bwd_cuda(A, W[..., :-1, :-1], vbar)
+    m = ck.max_m("quadform_diag_bwd") + 1
+    with pytest.raises(ValueError):
+        ck.quadform_diag_bwd_cuda(torch.ones(m, 3, device=dev), torch.ones(1, m, m, device=dev),
+                                  torch.ones(1, 3, device=dev))
+    assert ck.max_m("quadform_diag_bwd") >= 200  # ECoG's M = 200
 
 
 def test_float64_inference_on_the_card_launches_no_kernel(dev):
@@ -1033,6 +1101,22 @@ def test_scan_epochs_graph_equals_the_eager_epoch(dev, dtype, rtol):
         assert all(replayed[k] == 8 * graphs.step_launches[k] for k in ck.KERNELS), replayed
     else:
         assert sum(graphs.step_launches.values()) == 0 and sum(replayed.values()) == 0
+
+
+def test_a_captured_dsvi_step_launches_the_fused_backward_three_times(dev):
+    """The step graph of the fused trainer records the quadform's backward
+    as the fused kernel once for each of the step's three quadforms
+    (offdiagonal groups, diagonal groups, latent functions), and neither
+    6b nor 6c; each replay launches it three times again."""
+    p, mask, Z, x, y, idx, run, _ = _scan_problem(dev, torch.float32)
+    ck.reset_launches()
+    run(p, mask, Z, x, y, idx, _gen(dev, 7), 1)
+    torch.cuda.synchronize()
+    (graphs,) = run.graphs.values()
+    assert graphs.step_launches["quadform_diag_bwd"] == 3, graphs.step_launches
+    assert graphs.step_launches["quadform_diag_dw"] == graphs.step_launches["quadform_diag_da"] == 0
+    assert ck.REPLAYED["quadform_diag_bwd"] == 3 * 4  # 4 steps an epoch
+    assert ck.LAUNCHES["quadform_diag_dw"] == ck.LAUNCHES["quadform_diag_da"] == 0
 
 
 def test_scan_epochs_replays_draw_anew_from_the_generator(dev):

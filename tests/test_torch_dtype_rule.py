@@ -64,7 +64,7 @@ def _inputs(dtype, d=1):
 CALL_SITES = {
     "cholesky": (("cholesky",), lambda p: linalg.cholesky(p["K"])),
     "chol_tri_inv": (("chol_inv",), lambda p: linalg.chol_tri_inv(p["K"])[1]),
-    "quadform": (("quadform_diag", "quadform_diag_dw", "quadform_diag_da"),
+    "quadform": (("quadform_diag", "quadform_diag_bwd"),
                  lambda p: linalg._quadform_diag(p["A"], p["W"])),
     "gibbs": (("gibbs",), lambda p: kernels.gibbs(p["x1"], p["x2"], p["ell1"], p["ell2"], 1.3)),
     "rbf": (("rbf",), lambda p: kernels.rbf(p["x1"], p["x2"], 1.3, 0.4)),
@@ -72,12 +72,15 @@ CALL_SITES = {
 }
 
 
-def _run(site, dtype, d=1):
-    """Run a call site forward and backward with the rule seeing "cuda";
-    returns (the wrappers called, the output, the gradients)."""
+def _run(site, dtype, d=1, bwd_max_m=512):
+    """Run a call site forward and backward with the rule seeing "cuda" and
+    the fused quadform backward taking M up to `bwd_max_m`; returns (the
+    wrappers called, the output, the gradients)."""
     calls = []
     with ExitStack() as stack:
         stack.enter_context(mock.patch.object(ck, "_device_type", lambda t: "cuda"))
+        stack.enter_context(mock.patch.object(
+            ck, "max_m", lambda name, device=None, route=None: bwd_max_m))
         for name in ck.KERNELS:
             plain = getattr(ck, f"{name}_plain")
 
@@ -122,3 +125,48 @@ def test_inputs_the_kernels_do_not_take_go_to_the_plain_versions(site, d):
     assert grads and all(torch.isfinite(g).all() for g in grads)
     calls, _, _ = _run(site, torch.float32, ck.GIBBS_MAX_DIM if site == "gibbs" else 1)
     assert calls == [site]
+
+
+@pytest.mark.parametrize("grads, bwd_max_m, kernels", [
+    (("A", "W"), 512, ("quadform_diag", "quadform_diag_bwd")),
+    (("A", "W"), 5, ("quadform_diag", "quadform_diag_dw", "quadform_diag_da")),
+    (("A",), 512, ("quadform_diag", "quadform_diag_da")),
+    (("W",), 512, ("quadform_diag", "quadform_diag_dw")),
+])
+def test_quadform_backward_routes(grads, bwd_max_m, kernels):
+    """Float32 on the card: both gradients take the fused backward kernel up
+    to its largest M (here M = 6, N = 9, G = 3), and the pair 6b/6c above
+    it; one gradient alone takes its own kernel."""
+    calls = []
+    with ExitStack() as stack:
+        stack.enter_context(mock.patch.object(ck, "_device_type", lambda t: "cuda"))
+        stack.enter_context(mock.patch.object(
+            ck, "max_m", lambda name, device=None, route=None: bwd_max_m))
+        for name in ck.KERNELS:
+            def stub(*args, _name=name, _plain=getattr(ck, f"{name}_plain")):
+                calls.append(_name)
+                return _plain(*args)
+
+            stack.enter_context(mock.patch.object(ck, f"{name}_cuda", stub))
+        p = _inputs(torch.float32)
+        A = p["A"].detach().requires_grad_("A" in grads)
+        W = p["W"].detach().requires_grad_("W" in grads)
+        linalg._quadform_diag(A, W).sum().backward()
+    assert sorted(calls) == sorted(kernels), calls
+    assert all(torch.isfinite(t.grad).all() for t in (A, W) if t.requires_grad)
+
+
+@pytest.mark.parametrize("shape, route", [
+    ((100, 512, 3003), "fused"), ((100, 256, 3003), "fused"), ((100, 2000, 15), "fused"),
+    ((100, 1000, 105), "pair"), ((100, 1000, 3003), "pair"), ((200, 512, 3003), "pair"),
+    ((120, 512, 1), "pair"), ((112, 512, 78), "fused"),
+])
+def test_quadform_backward_route_rule(shape, route):
+    """The measured rule on (G, M, N): the fused kernel up to M = 112 where N
+    fits one cluster (512) or G <= 15, the pair elsewhere (meta tensors:
+    only shapes are read)."""
+    m, n, g = shape
+    A = torch.empty(m, n, device="meta")
+    W = torch.empty(g, m, m, device="meta")
+    with mock.patch.object(ck, "max_m", lambda name, device=None, route=None: 208):
+        assert ck.quadform_bwd_route(A, W) == route

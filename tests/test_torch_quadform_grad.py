@@ -1,6 +1,7 @@
 """The backward of the variance quadratic form on the CPU: the plain
-versions of the two backward kernels, and the gradients of the port's
-`_quadform_diag` autograd Function, against the JAX package.
+versions of the two backward kernels and of the fused one (both gradients
+from one C), and the gradients of the port's `_quadform_diag` autograd
+Function, against the JAX package.
 
 W is lower-triangular, as on the path (W = Lp^-1 @ tril(sqrt)).  dA is held
 whole; dW on its lower triangle, the part the kernel computes (its strict
@@ -11,6 +12,8 @@ interpret mode too, but its bodies accumulate in float32 and refuse float64
 operands, so it is held on float32 inputs at the tolerance
 `tests/test_pallas.py` uses for it.
 """
+
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -137,11 +140,56 @@ def test_plain_backward_matches_the_pallas_vjp_in_interpret_mode():
     assert_close(ck.quadform_diag_dw_plain(A64, W64, v64), _lower(dW_pal), rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("M, N, G, S", [(12, 40, 10, None), (5, 1, 3, None), (1, 7, 1, None),
+                                        (9, 17, 4, 3), (16, 33, 2, 2)])
+def test_fused_plain_backward_matches_the_pair_and_jax_vjp(M, N, G, S):
+    """`quadform_diag_bwd_plain` returns the pair's (dA, dW) and the JAX VJP's
+    (dW on its lower triangle) in float64, with and without a draw
+    dimension S."""
+    A, W, vbar = _inputs(M, N, G, seed=M + N + G, S=S)
+    dA, dW = ck.quadform_diag_bwd_plain(T(A), T(W), T(vbar))
+    assert_close(dA, ck.quadform_diag_da_plain(T(A), T(W), T(vbar)), rtol=1e-12, atol=1e-14)
+    assert_close(dW, ck.quadform_diag_dw_plain(T(A), T(W), T(vbar)), rtol=1e-12, atol=1e-14)
+    assert not np.triu(dW.numpy(), 1).any()
+    for s in [None] if S is None else range(S):
+        at = (lambda x: x) if s is None else (lambda x: x[s])
+        dA_ref, dW_ref = _jax_vjp(at(A), at(W), at(vbar))
+        assert_close(at(dA), dA_ref, rtol=1e-10, atol=1e-13)
+        assert_close(at(dW), _lower(dW_ref), rtol=1e-10, atol=1e-13)
+
+
+@pytest.mark.parametrize("S", [None, 2])
+def test_autograd_function_takes_the_fused_plain_backward_on_cpu(S):
+    """With both gradients needed, `_quadform_diag`'s backward on CPU
+    tensors is one call of the fused route's plain version: no kernel is
+    launched and neither backward kernel's plain version runs apart."""
+    A, W, vbar = _inputs(7, 13, 3, seed=4, S=S)
+    At = torch.tensor(A, requires_grad=True)
+    Wt = torch.tensor(W, requires_grad=True)
+    calls = []
+    real = ck.quadform_diag_bwd_plain
+
+    def fused(*args):
+        calls.append("quadform_diag_bwd")
+        return real(*args)
+
+    before = dict(ck.LAUNCHES)
+    with mock.patch.object(ck, "quadform_diag_bwd_plain", fused), \
+            mock.patch.object(ck, "quadform_diag_dw_plain", side_effect=AssertionError), \
+            mock.patch.object(ck, "quadform_diag_da_plain", side_effect=AssertionError):
+        tl._quadform_diag(At, Wt).backward(T(vbar))
+    assert calls == ["quadform_diag_bwd"] and ck.LAUNCHES == before
+    dA, dW = real(T(A), T(W), T(vbar))
+    assert torch.equal(At.grad, dA) and torch.equal(Wt.grad, dW)
+
+
 def test_backward_wrappers_take_the_plain_versions_on_cpu_without_launching():
     A, W, vbar = (T(a) for a in _inputs(6, 11, 3, seed=1))
     before = dict(ck.LAUNCHES)
     assert torch.equal(ck.quadform_diag_dw_cuda(A, W, vbar), ck.quadform_diag_dw_plain(A, W, vbar))
     assert torch.equal(ck.quadform_diag_da_cuda(A, W, vbar), ck.quadform_diag_da_plain(A, W, vbar))
+    fused, plain = ck.quadform_diag_bwd_cuda(A, W, vbar), ck.quadform_diag_bwd_plain(A, W, vbar)
+    assert all(torch.equal(a, b) for a, b in zip(fused, plain))
     assert ck.LAUNCHES == before
-    assert {"quadform_diag_dw", "quadform_diag_da"} <= set(ck.KERNELS)
+    assert {"quadform_diag_dw", "quadform_diag_da", "quadform_diag_bwd"} <= set(ck.KERNELS)
     assert set(ck.KERNELS) == set(ck.LAUNCHES) == set(ck._ARGTYPES)
