@@ -330,12 +330,15 @@ class _EpochGraphs:
     Captured after `_WARMUP_STEPS` steps on a side stream (which load the
     libraries and create the optimizer's state), whose effects on the
     parameters, the optimizer, the step count and the generator are then
-    restored in place.  `step_launches` are the kernel launches a step
-    replay makes, `capture_s` the seconds of warmup and capture (the span
-    `dsvi.capture` of `make_scan_epochs`; the counters `dsvi.captures` and
-    `dsvi.capture_s` add each capture's), and `pool_bytes` the memory the
-    two graphs' pools reserved.  The object keeps every tensor the graphs
-    address alive as long as it lives."""
+    restored in place.  `step_launches` are the port kernel launches a step
+    replay makes, `step_kernels` every kernel node of the step's graph
+    (`profiling.graph_kernel_nodes`, counted once, at capture; None where
+    the CUDA runtime cannot be loaded to read them),
+    `capture_s` the seconds of warmup and capture (the span `dsvi.capture`
+    of `make_scan_epochs`; the counters `dsvi.captures`, `dsvi.capture_s`
+    and `dsvi.step_graph_kernels` add each capture's), and `pool_bytes` the
+    memory the two graphs' pools reserved.  The object keeps every tensor
+    the graphs address alive as long as it lives."""
 
     def __init__(self, step: _TrainStep, params, grad_mask, Z, x, y, idx, draws, num_batches: int,
                  batch_size: int):
@@ -378,12 +381,16 @@ class _EpochGraphs:
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
-        self.shuffle_graph, self.step_graph = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        # the step's graph is kept past its capture, so that its nodes can be read
+        self.shuffle_graph = torch.cuda.CUDAGraph()
+        self.step_graph = torch.cuda.CUDAGraph(keep_graph=True)
         cuda_kernels.take_captured()
         for graph, body in ((self.shuffle_graph, shuffle), (self.step_graph, one_step)):
             graph.register_generator_state(gen)
             _capture(graph, body)
+        self.step_graph.instantiate()
         self.step_launches = cuda_kernels.take_captured()
+        self.step_kernels = profiling.graph_kernel_nodes(self.step_graph)
         # the graphs read and write these tensors by address: the two bodies
         # keep them (the epoch buffers, the cursor, the inputs) alive, and
         # refer to no attribute of this object, so it is freed, with the
@@ -394,6 +401,8 @@ class _EpochGraphs:
         self.capture_s = time.perf_counter() - t0
         profiling.count("dsvi.captures")
         profiling.count("dsvi.capture_s", self.capture_s)
+        if self.step_kernels is not None:
+            profiling.count("dsvi.step_graph_kernels", self.step_kernels)
 
     def epoch(self, out: torch.Tensor) -> None:
         """Replay one epoch: the shuffle, then each step; the losses go to `out`."""

@@ -25,6 +25,7 @@ card measures the host's enqueue unless the phase ends in a
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import itertools
 import os
 import threading
@@ -49,6 +50,7 @@ __all__ = [
     "clear_spans",
     "count",
     "counters",
+    "graph_kernel_nodes",
 ]
 
 
@@ -256,6 +258,44 @@ def counters() -> Dict[str, float]:
     out = dict(_COUNTERS)
     out.update({f"kernel.{name}.launches": n for name, n in cuda_kernels.LAUNCHES.items()})
     return out
+
+
+# cudaGraphNodeTypeKernel of the CUDA runtime's cudaGraphNodeType
+_KERNEL_NODE = 0
+
+
+def graph_kernel_nodes(graph: "torch.cuda.CUDAGraph") -> Optional[int]:
+    """The kernel nodes of a captured CUDA graph, one made with
+    `keep_graph=True`: the kernels a replay launches, whoever wrote them
+    (the port, PyTorch, cuBLAS); copies and memsets are not counted.  Read
+    from the graph PyTorch captured (`raw_cuda_graph()`) through the CUDA
+    runtime that PyTorch loaded (`cudaGraphGetNodes`,
+    `cudaGraphNodeGetType`).  None where that runtime cannot be loaded: the
+    count is a diagnostic, and the graph runs without it."""
+    try:
+        runtime = ctypes.CDLL(f"libcudart.so.{torch.version.cuda.split('.')[0]}")
+    except OSError:
+        return None
+    get_nodes, node_type = runtime.cudaGraphGetNodes, runtime.cudaGraphNodeGetType
+    get_nodes.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+                          ctypes.POINTER(ctypes.c_size_t)]
+    node_type.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    get_nodes.restype = node_type.restype = ctypes.c_int
+    handle = graph.raw_cuda_graph()
+
+    def check(err, call):
+        if err != 0:
+            raise RuntimeError(f"{call} failed with cudaError_t {err}")
+
+    n = ctypes.c_size_t(0)
+    check(get_nodes(handle, None, ctypes.byref(n)), "cudaGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(get_nodes(handle, nodes, ctypes.byref(n)), "cudaGraphGetNodes")
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes[:n.value]:
+        check(node_type(node, ctypes.byref(kind)), "cudaGraphNodeGetType")
+        kernels += kind.value == _KERNEL_NODE
+    return kernels
 
 
 # The recorded window of `trace` opens `CUDA_LEAD_S` before its region on a

@@ -1393,6 +1393,39 @@ def test_a_capture_counts_once(dev):
     assert again["dsvi.capture_s"] == after["dsvi.capture_s"]
 
 
+def test_a_capture_counts_the_step_graphs_kernels(dev):
+    """A capture adds the step graph's kernel nodes to the counter
+    `dsvi.step_graph_kernels`, once: more than the port's own launches in
+    it, and as many as the kernels the profiler sees in one replay of that
+    graph but two (a replay first fills the registered generator's seed and
+    offset, two kernels outside the graph); a second call on the same
+    tensors adds nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.utils import (
+        profiling,
+    )
+
+    params, mask, Z, x, y, idx, run, _ = _scan_problem(dev, torch.float32)
+    before = profiling.counters().get("dsvi.step_graph_kernels", 0)
+    gen = _gen(dev, 4)
+    run(params, mask, Z, x, y, idx, gen, 1)
+    (graphs,) = run.graphs.values()
+    added = profiling.counters()["dsvi.step_graph_kernels"] - before
+    assert added == graphs.step_kernels > sum(graphs.step_launches.values()) > 0
+    run(params, mask, Z, x, y, idx, gen, 1)
+    assert profiling.counters()["dsvi.step_graph_kernels"] - before == added
+    graphs.shuffle_graph.replay()  # the cursor back at the epoch's first batch
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graphs.step_graph.replay()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+    fills = [e for e in kernels if "FillFunctor<long>" in e.name]
+    assert len(kernels) == added + 2 and len(fills) >= 2, sorted({e.name for e in kernels})
+
+
 def test_a_kernel_span_encloses_its_launch(dev):
     """Under the profiler the span `kernel.gibbs` of one `gibbs_cuda` call
     encloses the call's kernel launch on the host, and the kernel starts on

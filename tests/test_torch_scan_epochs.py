@@ -222,6 +222,12 @@ class _ReplayedBody:
     """A stand-in for `torch.cuda.CUDAGraph` on the CPU: `dsvi._capture`
     keeps the body, and a replay runs it again op by op."""
 
+    def __init__(self, keep_graph=False):
+        pass
+
+    def instantiate(self):
+        pass
+
     def register_generator_state(self, generator):
         self.generator = generator
 
@@ -257,6 +263,7 @@ def test_graph_path_replays_the_eager_epochs_on_the_cpu(optimizer, monkeypatch):
                        ("memory_reserved", lambda device=None: 0)):
         monkeypatch.setattr(torch.cuda, name, fake)
     monkeypatch.setattr(td, "_capture", lambda graph, body: setattr(graph, "body", body))
+    monkeypatch.setattr(td.profiling, "graph_kernel_nodes", lambda graph: 0)
     x, y, idx = (torch.as_tensor(a) for a in _data(2))
     Z = torch.linspace(0.0, 1.0, M_IND, dtype=torch.float64)
     runs = []
