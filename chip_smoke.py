@@ -149,7 +149,8 @@ import torch
 
 # The kernels a DSVI training step launches (the rest serve the other paths):
 # the quadform's backward is the fused kernel wherever M is within its limit.
-TRAIN_KERNELS = ("gibbs", "chol_inv", "quadform_diag", "quadform_diag_bwd")
+TRAIN_KERNELS = ("gibbs", "chol_inv", "quadform_diag", "quadform_diag_bwd", "whitened_factors",
+                 "whitened_factors_bwd")
 # ... and at M = 200, where the measured route (`quadform_bwd_route`) keeps 6b
 # and 6c
 TRAIN_KERNELS_M200 = ("gibbs", "chol_inv", "quadform_diag", "quadform_diag_dw", "quadform_diag_da")
@@ -1445,6 +1446,128 @@ def fb_kernel_checks(ck, gen, dev, svc_K):
                        bound_ms(4 * (4 * N * N + 4 * 4 + 2 * N + 4 * 2 * N),
                                 4 * (2 * N * N * 2 + 2 * N * 2 * 2))), err)
     return out
+
+
+# The whitened factors' shapes (what, S, group sets, M): ECoG's sqrt_U
+# (3003 offdiagonal + 78 diagonal groups) and sqrt_W, PM2.5-sub's (15 + 6
+# and 6), a serving chunk of ECoG's sqrt_U
+WHITENED_SHAPES = (("ECoG sqrt_U", 1, (3003, 78), M_ECOG), ("ECoG sqrt_W", 1, (D_ECOG,), M_ECOG),
+                   ("PM2.5 sqrt_U", 1, (15, 6), M_PM), ("PM2.5 sqrt_W", 1, (D_PM,), M_PM),
+                   ("ECoG sqrt_U serve", S_CHUNK, (3003, 78), M_ECOG))
+
+
+def whitened_inputs(gen, dev, S, sizes, M):
+    """A factor parameter (G, M, M) at the path's scale, a prior inverse
+    factor (S, M, M) a set from a random SPD gram, and cotangents of every
+    output (dW lower-triangular), float32."""
+    X = 0.1 * torch.randn(sum(sizes), M, M, device=dev, generator=gen)
+    Ps = tuple(torch.linalg.inv(torch.linalg.cholesky(_spd(gen, dev, S, M).double())).tril().float()
+               for _ in sizes)
+    dWs = tuple(torch.randn(S, n, M, M, device=dev, generator=gen).tril() for n in sizes)
+    dtrs = tuple(torch.randn(S, n, device=dev, generator=gen) for n in sizes)
+    dlds = tuple(torch.randn(n, device=dev, generator=gen) for n in sizes)
+    return X, Ps, dWs, dtrs, dlds
+
+
+def whitened_composed(linalg, X, Ps, sizes):
+    """The chain as the model ran it before the kernels: tril_regularized on
+    the whole parameter, a slice and a matmul a set, the KL's ||W||^2 and
+    log-determinant from W and the parameter's slices."""
+    Ws = linalg.whiten(linalg.tril_regularized(X, JITTER), Ps, sizes)
+    out = list(Ws) + [torch.sum(W * W, dim=(-2, -1)) for W in Ws]
+    start = 0
+    for n in sizes:
+        dq = linalg.regularized_diag(X[start:start + n], JITTER)
+        out.append(torch.sum(torch.log(torch.abs(dq)), dim=-1))
+        start += n
+    return out
+
+
+def whitened_rows(ck, linalg, dev, smi):
+    """The whitened factors' two kernels at WHITENED_SHAPES: each output and
+    gradient against the float64 plain version (at most 3x the float32
+    plain version's error, or 2e-6 of max), then the kernels, their plain
+    versions and the model's former composition (forward; backward by
+    autograd on the same cotangents) timed, with the bytes bound at 3.35
+    TB/s.  Returns the JSON rows."""
+    rows = []
+    for i, (what, S, sizes, M) in enumerate(WHITENED_SHAPES):
+        gen = torch.Generator(device=dev).manual_seed(60 + i)
+        X, Ps, dWs, dtrs, dlds = whitened_inputs(gen, dev, S, sizes, M)
+
+        def run(fwd, bwd, X, Ps, dWs, dtrs, dlds):
+            Ws, trs, lds = fwd(X, Ps, sizes, JITTER)
+            dX, dPs = bwd(X, Ps, sizes, JITTER, Ws, dWs, dtrs, dlds)
+            return [*Ws, *trs, *lds, dX, *dPs]
+
+        got = run(ck.whitened_factors_cuda, ck.whitened_factors_bwd_cuda, X, Ps, dWs, dtrs, dlds)
+        again = run(ck.whitened_factors_cuda, ck.whitened_factors_bwd_cuda, X, Ps, dWs, dtrs, dlds)
+        plain = run(ck.whitened_factors_plain, ck.whitened_factors_bwd_plain, X, Ps, dWs, dtrs, dlds)
+        f64 = lambda ts: tuple(t.double() for t in ts)  # noqa: E731
+        ref = run(ck.whitened_factors_plain, ck.whitened_factors_bwd_plain, X.double(), f64(Ps),
+                  f64(dWs), f64(dtrs), f64(dlds))
+        torch.cuda.synchronize()
+        errs = [(rel_to_max(a, r)[1], rel_to_max(p, r)[1]) for a, p, r in zip(got, plain, ref)]
+        check(all(e <= max(3 * pe, 2e-6) for e, pe in errs)
+              and all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"whitened factors {what} (S={S}, sets {sizes}, M={M}): kernels / f32 plain errors "
+              f"against float64 {', '.join(f'{e:.2e}/{pe:.2e}' for e, pe in errs)}; two runs equal")
+        G, tri = sum(sizes), M * (M + 1) // 2
+        fwd_bytes = 4 * (G * M * M + len(sizes) * S * M * M + S * G * M * M + S * G + G)
+        fwd_ops = 2 * S * G * M * (M + 1) * (M + 2) // 6
+        bwd_bytes = 4 * (G * tri + 2 * S * G * tri + len(sizes) * S * M * M + S * G + G
+                         + G * M * M + len(sizes) * S * M * M)
+        bwd_ops = 2 * S * G * (M * (M + 1) * (M + 2) // 6 + M * (M + 1) * (2 * M + 1) // 6)
+        Xg = X.clone().requires_grad_(True)
+        Pg = tuple(P.clone().requires_grad_(True) for P in Ps)
+        outs = whitened_composed(linalg, Xg, Pg, sizes)
+        cots = [*dWs, *dtrs, *dlds]
+        rows.append(timing_entry(
+            f"whitened_factors {what} forward", lambda: ck.whitened_factors_cuda(X, Ps, sizes, JITTER),
+            lambda: ck.whitened_factors_plain(X, Ps, sizes, JITTER),
+            lambda: whitened_composed(linalg, X, Ps, sizes), bound_ms(fwd_bytes, fwd_ops)))
+        Ws = ck.whitened_factors_cuda(X, Ps, sizes, JITTER)[0]
+        rows.append(timing_entry(
+            f"whitened_factors_bwd {what}",
+            lambda: ck.whitened_factors_bwd_cuda(X, Ps, sizes, JITTER, Ws, dWs, dtrs, dlds),
+            lambda: ck.whitened_factors_bwd_plain(X, Ps, sizes, JITTER, Ws, dWs, dtrs, dlds),
+            lambda: torch.autograd.grad(outs, (Xg, *Pg), cots, retain_graph=True),
+            bound_ms(bwd_bytes, bwd_ops)))
+        for row in rows[-2:]:
+            row.update(S=S, sets=list(sizes), M=M, card=smi)
+        fwd, bwd = rows[-2], rows[-1]
+        print(f"whitened factors {what}: kernels {fwd['ms'] + bwd['ms']:.4f} ms forward and "
+              f"backward, the former composition {fwd['library_ms'] + bwd['library_ms']:.4f} ms "
+              f"({smi})", flush=True)
+    return rows
+
+
+def whitened_main() -> int:
+    """The whitened factors' kernels alone, with their build (~1 min):
+    python3 -u -c 'import sys, chip_smoke; sys.exit(chip_smoke.whitened_main())'"""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops import linalg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    for name, log in ck.build(("whitened_factors", "whitened_factors_bwd")).items():
+        print(f"build {name}:\n{log}")
+    print(f"max_m: {ck.max_m('whitened_factors')} forward, {ck.max_m('whitened_factors_bwd')} "
+          f"backward ({smi})")
+    rows = whitened_rows(ck, linalg, torch.device("cuda"), smi)
+    print(json.dumps({"whitened_factors": rows}))
+    for f in FAILURES:
+        print("FAILED: " + f)
+    return 1 if FAILURES else 0
 
 
 def _spd(gen, dev, b, m):
@@ -3551,7 +3674,8 @@ def main() -> int:
     fb = fb_kernel_checks(ck, gen, dev, svc_K)
     more = {"cholesky": cholesky_routes(ck, gen, dev, smi), "kron_mv": kron_layouts(ck, gen, dev, smi),
             "quadform_diag": qf_rows, "gibbs": gibbs_rows, "rbf": rbf_rows,
-            "chol_inv": chol_inv_shapes(ck, torch.Generator(device=dev).manual_seed(9), dev, smi)}
+            "chol_inv": chol_inv_shapes(ck, torch.Generator(device=dev).manual_seed(9), dev, smi),
+            "whitened_factors": whitened_rows(ck, linalg, dev, smi)}
     t0 = time.perf_counter()
     sn_launched = fb_snmgp(ck, dev, smi)
     print(f"SNMGP phase {time.perf_counter() - t0:.1f} s; launches {sn_launched}")

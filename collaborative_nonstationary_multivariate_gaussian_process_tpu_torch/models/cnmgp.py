@@ -38,20 +38,24 @@ import torch
 from ..config import DEFAULT_DTYPE, DSVI_JITTER, resolve_device
 from ..ops.kernels import gibbs, rbf, sq_dist
 from ..ops.linalg import (
+    WhitenedFactors,
     _tril_idx,
     chol_tri_inv,
     chol_tri_inv_robust,
     conditional_projection,
     kl_gaussian_ref_compat,
     kl_gaussian_white,
+    kl_gaussian_white_parts,
     mgp_mean,
-    mgp_mean_var_white,
+    mgp_moments_white,
     regularized_diag,
     sample_diag,
     sample_full_cov,
     tri_solve_white,
     tril_mask,
     tril_regularized,
+    whiten,
+    whitened_factors,
 )
 from ..utils import profiling
 
@@ -300,9 +304,8 @@ class _Latents(NamedTuple):
     Lp_all: torch.Tensor  # (S, 4, M, M) chol of (K22 + jI)
     Lp_inv: torch.Tensor  # (S, 4, M, M) their triangular inverses
     Wh_v: torch.Tensor  # (S, M, M)      Lp_te^-1 tril(sqrt_v)
-    Wh_off: torch.Tensor  # (S, T0, M, M) Lp_L0^-1 tril(sqrt_U)[offdiag]
-    Wh_diag: torch.Tensor  # (S, D, M, M)  Lp_L1^-1 tril(sqrt_U)[diag]
-    Wh_W: torch.Tensor  # (S, D, M, M)  Lp_G^-1 tril(sqrt_W)
+    Wh_U: WhitenedFactors  # sets (offdiag (S, T0, M, M), diag (S, D, M, M)): Lp_L0^-1, Lp_L1^-1
+    Wh_W: WhitenedFactors  # one set (S, D, M, M): Lp_G^-1 tril(sqrt_W)
 
 
 def _sample_latents(
@@ -318,7 +321,9 @@ def _sample_latents(
          and diag (K_L1, log-GP) groups;
       3. analytic marginal mean/variance of the shared latents g_d.
     The (S, 4, M, M) prior stack [tildeell, L0, L1, Gibbs] is factored in
-    one batch by the fused Cholesky-inverse kernel.  kl_mode "true" uses the
+    one batch by the fused Cholesky-inverse kernel, the whitened coefficient
+    factors of sqrt_U's two group sets in one call and sqrt_W's in another
+    (`whitened_factors`, with their KL pieces).  kl_mode "true" uses the
     regularized factors; "ref_compat" the raw tril factors with the
     reference's full-cov sampling jitter.
     """
@@ -348,12 +353,10 @@ def _sample_latents(
         K_L0_12, K_L0_22 = _rbf_pair(s2_L0, ls_L0)
         K_L1_12, K_L1_22 = _rbf_pair(s2_L1, ls_L1)
         if kl_mode == "ref_compat":
-            tril_fn = tril_mask
             Lt_v = tril_mask(params.sqrt_v)
             sampled_v = sample_full_cov(params.mu_v, Lt_v, noise.z_v1, noise.z_v2, jitter)
         else:
-            tril_fn = partial(tril_regularized, jitter=jitter)
-            Lt_v = tril_fn(params.sqrt_v)
+            Lt_v = tril_regularized(params.sqrt_v, jitter)
             sampled_v = sample_full_cov(params.mu_v, Lt_v, noise.z_v1, None, 0.0)
         # f32 overflow guard on the log-lengthscales, as in the JAX package
         sampled_v = torch.clamp(sampled_v, -30.0, 30.0)  # (S, M)
@@ -384,26 +387,27 @@ def _sample_latents(
         ell_X = torch.exp(tilde_ell)
         Wh_v = torch.matmul(Lp_inv[:, 0], Lt_v)  # (S, M, M)
 
+    def whitened(sqrt, Ps, sizes):
+        # the raw tril factors in ref_compat, else the regularized ones
+        if kl_mode == "ref_compat":
+            return WhitenedFactors(whiten(tril_mask(sqrt), Ps, sizes), None, None)
+        return whitened_factors(sqrt, Ps, sizes, jitter)
+
     # --- coefficient matrix L(x); packed [:T0] offdiag, [T0:] diag --------
     with profiling.span("cnmgp.coef_diag"):
         T0 = D * (D - 1) // 2
-        Sigma_U_tril = tril_fn(params.sqrt_U)  # (G, M, M)
-        mean_d, var_d, Wh_diag = mgp_mean_var_white(
-            A_L1, Lp_inv[:, 2], s2_L1, params.mu_U[T0:], Sigma_U_tril[T0:]
-        )
+        P_off, P_diag = Lp_inv[:, 1], Lp_inv[:, 2]
+        Wh_U = whitened(params.sqrt_U, (P_off, P_diag), (T0, D))
+        mean_d, var_d = mgp_moments_white(A_L1, P_diag, s2_L1, params.mu_U[T0:], Wh_U.W[1])
         L_diag = torch.exp(sample_diag(mean_d, var_d, noise.z_diag, jitter))  # (S, D, B)
 
     with profiling.span("cnmgp.coef_off"):
         L_full = torch.zeros((S, B, D, D), dtype=dtype, device=x.device)
         if D > 1:
             ii, jj = _tril_idx(D, x.device, -1)
-            mean_o, var_o, Wh_off = mgp_mean_var_white(
-                A_L0, Lp_inv[:, 1], s2_L0, params.mu_U[:T0], Sigma_U_tril[:T0]
-            )
+            mean_o, var_o = mgp_moments_white(A_L0, P_off, s2_L0, params.mu_U[:T0], Wh_U.W[0])
             L_off = sample_diag(mean_o, var_o, noise.z_off, jitter)  # (S, T0, B)
             L_full[:, :, ii, jj] = L_off.transpose(-1, -2)
-        else:
-            Wh_off = torch.zeros((S, 0, M, M), dtype=dtype, device=x.device)
         dd = torch.arange(D, device=x.device)
         L_full[:, :, dd, dd] = L_diag.transpose(-1, -2)
 
@@ -412,12 +416,12 @@ def _sample_latents(
         K_G_12 = gibbs(x, Z, ell_X, ell_Z, sigma2_g)  # (S, B, M)
         A_G = tri_solve_white(Lp_all[:, 3], Lp_inv[:, 3], K_G_12.transpose(-1, -2))
     with profiling.span("cnmgp.g_moments"):
-        mu_g, s2_g, Wh_W = mgp_mean_var_white(
-            A_G, Lp_inv[:, 3], sigma2_g, params.mu_W, tril_fn(params.sqrt_W)
-        )
+        P_G = Lp_inv[:, 3]
+        Wh_W = whitened(params.sqrt_W, (P_G,), (D,))
+        mu_g, s2_g = mgp_moments_white(A_G, P_G, sigma2_g, params.mu_W, Wh_W.W[0])
     return _Latents(
         L_full=L_full, mu_g=mu_g, sigma2_g=s2_g, tilde_ell=tilde_ell, sampled_v=sampled_v,
-        Lp_all=Lp_all, Lp_inv=Lp_inv, Wh_v=Wh_v, Wh_off=Wh_off, Wh_diag=Wh_diag, Wh_W=Wh_W,
+        Lp_all=Lp_all, Lp_inv=Lp_inv, Wh_v=Wh_v, Wh_U=Wh_U, Wh_W=Wh_W,
     )
 
 
@@ -425,29 +429,37 @@ def _kl_terms(params: CNMGPParams, lat: _Latents, jitter=DSVI_JITTER, kl_mode="t
     """The three KL groups (kl_W, kl_v, kl_U), each (S,), from the pieces
     `_sample_latents` computed (JAX `_kl_terms`, cnmgp.py:386-454).
     kl_mode "true": the exact KL of the regularized factor family, from the
-    whitened factors Wh and the regularized diagonals.  "ref_compat": the
+    traces and log-determinants the kernels gave with the whitened factors
+    (`whitened_factors`), else from the whitened factors and the regularized
+    diagonals.  "ref_compat": the
     reference's KL on raw tril factors, its diagonal-only trace included."""
     D = params.num_outputs
     T0 = D * (D - 1) // 2
     Lp_diag = torch.diagonal(lat.Lp_all, dim1=-2, dim2=-1)  # (S, 4, M)
     logdet_p = torch.sum(torch.log(Lp_diag), dim=-1)  # (S, 4)
 
-    def kl(mu_q, sqrt_q, wh, prior, grouped):
-        # a group of G factors broadcasts (S, 1) prior scalars against (S, G)
+    def kl(mu_q, prior, grouped, sqrt_q, wh, k=0):
+        # a group of G factors broadcasts (S, 1) prior scalars against (S, G);
+        # `sqrt_q()` gives the factor parameter's groups, taken only where
+        # read; `wh` is v's whitened factor, or the group sets'
+        # `WhitenedFactors` and k the set
         ld = logdet_p[:, prior, None] if grouped else logdet_p[:, prior]
         lp_inv = lat.Lp_inv[:, prior]
         if kl_mode == "ref_compat":
             lp_d = Lp_diag[:, prior, None, :] if grouped else Lp_diag[:, prior]
-            out = kl_gaussian_ref_compat(mu_q, tril_mask(sqrt_q), lp_d, ld, lp_inv, jitter)
+            out = kl_gaussian_ref_compat(mu_q, tril_mask(sqrt_q()), lp_d, ld, lp_inv, jitter)
+        elif grouped and wh.trace is not None:
+            out = kl_gaussian_white_parts(mu_q, wh.logdet_q[k], wh.trace[k], ld, lp_inv)
         else:
-            out = kl_gaussian_white(mu_q, regularized_diag(sqrt_q, jitter), wh, ld, lp_inv)
+            W = wh.W[k] if grouped else wh
+            out = kl_gaussian_white(mu_q, regularized_diag(sqrt_q(), jitter), W, ld, lp_inv)
         return torch.sum(out, dim=-1) if grouped else out
 
-    kl_W = kl(params.mu_W, params.sqrt_W, lat.Wh_W, 3, True)
-    kl_v = kl(params.mu_v, params.sqrt_v, lat.Wh_v, 0, False)
-    kl_U = kl(params.mu_U[T0:], params.sqrt_U[T0:], lat.Wh_diag, 2, True)
+    kl_W = kl(params.mu_W, 3, True, lambda: params.sqrt_W, lat.Wh_W)
+    kl_v = kl(params.mu_v, 0, False, lambda: params.sqrt_v, lat.Wh_v)
+    kl_U = kl(params.mu_U[T0:], 2, True, lambda: params.sqrt_U[T0:], lat.Wh_U, 1)
     if D > 1:
-        kl_U = kl_U + kl(params.mu_U[:T0], params.sqrt_U[:T0], lat.Wh_off, 1, True)
+        kl_U = kl_U + kl(params.mu_U[:T0], 1, True, lambda: params.sqrt_U[:T0], lat.Wh_U, 0)
     return kl_W, kl_v, kl_U
 
 

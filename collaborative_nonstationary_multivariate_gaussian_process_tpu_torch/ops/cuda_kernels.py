@@ -4,11 +4,14 @@ The counterpart of the JAX package's `ops/pallas_kernels.py`.  Every TPU
 kernel there has one here (the Gibbs and RBF grams, the Kronecker matvec,
 the batched Cholesky, the fused Cholesky + triangular inverse, the
 variance quadratic form and its two backward kernels, and the fused
-backward that computes both of its gradients from one C), and each has:
+backward that computes both of its gradients from one C), and two kernels
+of its own (the whitened coefficient factors and their backward, a chain
+the JAX package leaves to XLA's fusion), and each has:
 
   - a wrapper (`gibbs_cuda`, `rbf_cuda`, `kron_mv_cuda`, `cholesky_cuda`,
     `chol_inv_cuda`, `quadform_diag_cuda`, `quadform_diag_dw_cuda`,
-    `quadform_diag_da_cuda`, `quadform_diag_bwd_cuda`) that launches the
+    `quadform_diag_da_cuda`, `quadform_diag_bwd_cuda`,
+    `whitened_factors_cuda`, `whitened_factors_bwd_cuda`) that launches the
     kernel for a CUDA tensor and counts the launch in `LAUNCHES`, each call
     the span `kernel.<name>` (`utils.profiling.span`: its checks,
     allocations and the ctypes call);
@@ -20,7 +23,8 @@ backward that computes both of its gradients from one C), and each has:
   - a plain PyTorch version (`gibbs_plain`, `rbf_plain`, `kron_mv_plain`,
     `cholesky_plain`, `chol_inv_plain`, `quadform_diag_plain`,
     `quadform_diag_dw_plain`, `quadform_diag_da_plain`,
-    `quadform_diag_bwd_plain`) with the same math.  The CPU tests run it, and
+    `quadform_diag_bwd_plain`, `whitened_factors_plain`,
+    `whitened_factors_bwd_plain`) with the same math.  The CPU tests run it, and
     `chip_smoke.py` holds each kernel against it on the card.
 
 Which of the two an op of `ops/` runs is one stated rule, `use_kernel`
@@ -30,7 +34,7 @@ dimension above 4, a 2-D RBF input), as the JAX package takes Pallas only
 for float32.
 
 Sources live in `../csrc/*.cu` (with the shared headers `chol_blocked.cuh`,
-`chol_multi_cta.cuh` and `qf_mma.cuh`).
+`chol_multi_cta.cuh`, `qf_mma.cuh` and `whitened.cuh`).
 Each is compiled on first use with `nvcc` for `sm_90a` into `build/` at the
 repository root (one shared library per source, named by a hash of the
 sources and flags) and bound with `ctypes`; every C entry returns
@@ -98,12 +102,18 @@ __all__ = [
     "QF_BWD_FUSED_MAX_M",
     "QF_BWD_FUSED_MAX_N",
     "QF_BWD_FUSED_MAX_G_WIDE",
+    "whitened_factors_cuda",
+    "whitened_factors_plain",
+    "whitened_factors_bwd_cuda",
+    "whitened_factors_bwd_plain",
+    "WHITENED_MAX_M",
     "max_m",
 ]
 
 KERNELS = (
     "gibbs", "rbf", "kron_mv", "cholesky", "chol_inv", "quadform_diag",
-    "quadform_diag_dw", "quadform_diag_da", "quadform_diag_bwd",
+    "quadform_diag_dw", "quadform_diag_da", "quadform_diag_bwd", "whitened_factors",
+    "whitened_factors_bwd",
 )
 
 # The routes of `csrc/cholesky.cu` (its `route` argument): one block per
@@ -131,6 +141,11 @@ CHOL_INV_CROSSOVER_M = 240
 QF_BWD_FUSED_MAX_M = 112
 QF_BWD_FUSED_MAX_N = 512
 QF_BWD_FUSED_MAX_G_WIDE = 15
+
+# The largest M at which the whitened factors run their kernels: the fused
+# quadform backward's range (its max_m on the H100), the M the DSVI step
+# takes the kernels at.
+WHITENED_MAX_M = 208
 
 # The largest input dimension the Gibbs kernel takes (the JAX function takes any).
 GIBBS_MAX_DIM = 4
@@ -169,6 +184,11 @@ _ARGTYPES = {
     "quadform_diag_da": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # A, W, vbar, dA_part, dW_part, dA, dW, s, g, m, n, stream
     "quadform_diag_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # X, P0, P1, W0, W1, tr0, tr1, ld0, ld1, s, g, g0, m, jitter, stream
+    "whitened_factors": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # X, P0, P1, dW0, dW1, W0, W1, dtr0, dtr1, dld0, dld1, part, dX, dP0, dP1, s, g, g0,
+    # m, jitter, stream
+    "whitened_factors_bwd": [_P] * 15 + [_I, _I, _I, _I, _F, _P],
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _MAX_M: Dict[tuple, int] = {}
@@ -889,3 +909,176 @@ def quadform_bwd_route(A, W) -> str:
     fused = m <= min(QF_BWD_FUSED_MAX_M, max_m("quadform_diag_bwd", A.device)) and (
         n <= QF_BWD_FUSED_MAX_N or g <= QF_BWD_FUSED_MAX_G_WIDE)
     return "fused" if fused else "pair"
+
+
+# ---------------------------------------------------------------------------
+# Whitened coefficient factors
+# ---------------------------------------------------------------------------
+#
+# For the factor parameter X (G, M, M) cut into group sets of `sizes` groups
+# (the offdiagonal and diagonal coefficient groups of sqrt_U, or sqrt_W's
+# one set), each set with its prior inverse factor P (S, M, M):
+#   T = tril_regularized(X), W_set = P @ T[set] (S, n, M, M),
+#   trace_set = ||W_set||_F^2 (S, n), logdet_set = sum log |diag T[set]| (n).
+
+
+def _regularized(X, jitter):
+    """(T, d, r, sign) of `linalg.tril_regularized`: T = tril(X) (masked by
+    a multiply) with diagonal sign(d) r, r = sqrt(d^2 + jitter)."""
+    d = torch.diagonal(X, dim1=-2, dim2=-1)
+    r = torch.sqrt(d * d + jitter)
+    sign = torch.where(d >= 0, 1.0, -1.0).to(X.dtype)
+    eye = torch.eye(X.shape[-1], dtype=torch.bool, device=X.device)
+    mask = torch.ones(X.shape[-2:], dtype=X.dtype, device=X.device).tril()
+    return torch.where(eye, (sign * r)[..., :, None] * eye, X * mask), d, r, sign
+
+
+def _cut(sizes):
+    """(start, stop) of each group set."""
+    bounds, start = [], 0
+    for n in sizes:
+        bounds.append((start, start + n))
+        start += n
+    return bounds
+
+
+def whitened_factors_plain(X, Ps, sizes, jitter):
+    """(Ws, traces, logdets), each a tuple over the group sets, in plain
+    PyTorch: the math of `csrc/whitened_factors.cu`.  X (G, M, M); Ps a
+    (S, M, M) lower-triangular factor a set; `sizes` the sets' group counts
+    (summing to G), in X's order."""
+    T, _, r, _ = _regularized(X, jitter)
+    Ws, traces, logdets = [], [], []
+    for P, (a, b) in zip(Ps, _cut(sizes)):
+        W = torch.matmul(P[:, None], T[a:b])
+        Ws.append(W)
+        traces.append(torch.sum(W * W, dim=(-2, -1)))
+        logdets.append(torch.sum(torch.log(r[a:b]), dim=-1))
+    return tuple(Ws), tuple(traces), tuple(logdets)
+
+
+def _check_whitened(name, X, Ps, sizes):
+    """Check X (G, M, M), one (S, M, M) factor a set and the sets' sizes;
+    returns (s, g, m, device)."""
+    if X.ndim != 3 or X.shape[-1] != X.shape[-2]:
+        raise ValueError(f"{name}: expected X (G, M, M), got {tuple(X.shape)}")
+    g, m = X.shape[0], X.shape[-1]
+    if len(Ps) != len(sizes) or len(sizes) not in (1, 2) or sum(sizes) != g:
+        raise ValueError(f"{name}: {len(Ps)} factors for group sets {tuple(sizes)} of {g} groups")
+    s = Ps[0].shape[0] if Ps[0].ndim == 3 else -1
+    for P in Ps:
+        if P.shape != (s, m, m):
+            raise ValueError(f"{name}: expected factors (S, {m}, {m}), got {tuple(P.shape)}")
+    device = _check_cuda_f32(name, X, *Ps)
+    if m > max_m(name, device) or s < 1 or s > 65535:
+        raise ValueError(f"{name}: M={m} (max {max_m(name, device)}) or S={s} out of range")
+    return s, g, m, device
+
+
+def _pair(items):
+    """The sets' tensors as the kernels' two slots (None: an absent set)."""
+    return list(items) + [None] * (2 - len(items))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+@_spanned
+def whitened_factors_cuda(X, Ps, sizes, jitter):
+    """`whitened_factors_plain` through `csrc/whitened_factors.cu` for CUDA
+    float32 tensors (M <= max_m("whitened_factors")): X read once, each W
+    written once (zeros above its diagonal), the traces and log-determinants
+    summed in the same pass; `whitened_factors_plain` for CPU tensors.  A
+    non-finite entry above X's diagonal makes its column of W NaN on and
+    below the diagonal, and the set's trace NaN, as the plain product's
+    mask multiply does."""
+    if not X.is_cuda:
+        return whitened_factors_plain(X, Ps, sizes, jitter)
+    sizes = tuple(int(n) for n in sizes)
+    Ps = tuple(P.contiguous() for P in Ps)
+    s, g, m, device = _check_whitened("whitened_factors", X, Ps, sizes)
+    X = X.contiguous()
+    Ws = tuple(torch.empty((s, n, m, m), dtype=torch.float32, device=device) for n in sizes)
+    trs = tuple(torch.empty((s, n), dtype=torch.float32, device=device) for n in sizes)
+    lds = tuple(torch.empty((n,), dtype=torch.float32, device=device) for n in sizes)
+    if g and m:
+        _launch("whitened_factors", device, X.data_ptr(), *map(_ptr, _pair(Ps)),
+                *map(_ptr, _pair(Ws)), *map(_ptr, _pair(trs)), *map(_ptr, _pair(lds)),
+                s, g, sizes[0], m, float(jitter))
+    return Ws, trs, lds
+
+
+def whitened_factors_bwd_plain(X, Ps, sizes, jitter, Ws, dWs, dtrs, dlds):
+    """(dX, dPs) of `whitened_factors_plain` for the cotangents dWs, dtrs and
+    dlds (each a tuple over the sets, an entry None where absent), in plain
+    PyTorch: the math of `csrc/whitened_factors_bwd.cu`.  With E = tril(dW +
+    2 dtrace W), dT_g = sum_s P_s^T E_sg and dP_s = sum_g E_sg T_g^T (whole,
+    as the product's backward gives it); dX is dT's strict lower triangle,
+    zero above, and on the diagonal dT_kk sign(d) d / r + dlogdet d / r^2."""
+    T, d, r, sign = _regularized(X, jitter)
+    dT = torch.zeros_like(X)
+    dlog = torch.zeros_like(d)
+    dPs = []
+    for P, W, dW, dtr, dld, (a, b) in zip(Ps, Ws, dWs, dtrs, dlds, _cut(sizes)):
+        E = torch.zeros_like(W)
+        if dW is not None:
+            E = E + dW
+        if dtr is not None:
+            E = E + 2.0 * dtr[..., None, None] * W
+        E = E.tril()
+        dT[a:b] = torch.einsum("smi,sgmk->gik", P, E)
+        dPs.append(torch.einsum("sgik,gmk->sim", E, T[a:b]))
+        if dld is not None:
+            dlog[a:b] = dld[:, None] * (d[a:b] / (r[a:b] * r[a:b]))
+    diag = torch.diagonal(dT, dim1=-2, dim2=-1) * (sign * d / r) + dlog
+    return torch.diagonal_scatter(dT.tril(-1), diag, dim1=-2, dim2=-1), tuple(dPs)
+
+
+@_spanned
+def whitened_factors_bwd_cuda(X, Ps, sizes, jitter, Ws, dWs, dtrs, dlds):
+    """`whitened_factors_bwd_plain` through `csrc/whitened_factors_bwd.cu`
+    for CUDA float32 tensors (M <= max_m("whitened_factors_bwd")): dX
+    written once in X's layout, each dP summed over its set's groups by
+    blocks and then in a fixed order (deterministic, no atomics), the
+    (S, G, M, M) broadcast gradient never formed;
+    `whitened_factors_bwd_plain` for CPU tensors.  Returns (dX, dPs)."""
+    if not X.is_cuda:
+        return whitened_factors_bwd_plain(X, Ps, sizes, jitter, Ws, dWs, dtrs, dlds)
+    sizes = tuple(int(n) for n in sizes)
+    Ps = tuple(P.contiguous() for P in Ps)
+    s, g, m, device = _check_whitened("whitened_factors_bwd", X, Ps, sizes)
+    X = X.contiguous()
+
+    def given(ts, shape):
+        out = []
+        for t, n in zip(ts, sizes):
+            if t is not None:
+                t = t.contiguous()
+                if t.shape != shape(n):
+                    raise ValueError(f"whitened_factors_bwd: expected {shape(n)}, got "
+                                     f"{tuple(t.shape)}")
+                _check_cuda_f32("whitened_factors_bwd", X, t)
+            out.append(t)
+        return out
+
+    Ws = given(Ws, lambda n: (s, n, m, m))
+    dWs = given(dWs, lambda n: (s, n, m, m))
+    dtrs = given(dtrs, lambda n: (s, n))
+    dlds = given(dlds, lambda n: (n,))
+    dX = torch.empty_like(X)
+    dPs = tuple(torch.empty((s, m, m), dtype=torch.float32, device=device) for _ in sizes)
+    if g == 0 or m == 0:
+        return dX, tuple(P.zero_() for P in dPs)
+    n1 = sizes[1] if len(sizes) == 2 else 0
+    with torch.cuda.device(device):  # the cut of the launch, from the shape and the card
+        slots = _library("whitened_factors_bwd").whitened_factors_bwd_slots(s, sizes[0], n1, m)
+    if slots < 1:
+        raise RuntimeError(f"whitened_factors_bwd: could not plan ({s}, {g}, {m}) on {device}")
+    # scratch from torch.empty, so a CUDA graph's capture takes it from its pool
+    part = torch.empty((slots, s, m, m), dtype=torch.float32, device=device)
+    _launch("whitened_factors_bwd", device, X.data_ptr(), *map(_ptr, _pair(Ps)),
+            *map(_ptr, _pair(dWs)), *map(_ptr, _pair(Ws)), *map(_ptr, _pair(dtrs)),
+            *map(_ptr, _pair(dlds)), part.data_ptr(), dX.data_ptr(), *map(_ptr, _pair(dPs)),
+            s, g, sizes[0], m, float(jitter))
+    return dX, dPs

@@ -7,9 +7,12 @@ Cholesky (a `torch.autograd.Function` over the Cholesky kernel with the
 Murray pullback), masks and regularized factors, reparameterized sampling from explicit standard-normal
 tensors, sparse-GP conditioning, the fused Cholesky + triangular inverse and
 the whitened forward substitution (each a `torch.autograd.Function` with the
-JAX package's matmul-only backward), the whitened marginal moments (whose
-quadratic form is a `torch.autograd.Function` over the forward and backward
-quadform kernels), the Gaussian KLs, and the dense conditioning of the
+JAX package's matmul-only backward), the whitened coefficient factors with
+their KL pieces (a `torch.autograd.Function` over two kernels of the port's
+own on the card, today's composition of ops elsewhere), the whitened
+marginal moments (whose quadratic form is a `torch.autograd.Function` over
+the forward and backward quadform kernels), the Gaussian KLs, and the dense
+conditioning of the
 reference's MGP / JGP / CGP helpers (`mgp_mean_var`, `conditional_mean_cov`,
 `joint_sample`, `joint_sample_full`, `conditional_sample`).  Every function
 takes an optional leading draw dimension S where the JAX package vmaps over
@@ -20,6 +23,7 @@ takes a key.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,8 +60,13 @@ __all__ = [
     "chol_tri_inv",
     "chol_tri_inv_robust",
     "tri_solve_white",
+    "WhitenedFactors",
+    "whitened_factors",
+    "whiten",
     "mgp_mean_var_white",
+    "mgp_moments_white",
     "kl_gaussian_white",
+    "kl_gaussian_white_parts",
     "kl_gaussian_ref_compat",
 ]
 
@@ -419,6 +428,82 @@ def tri_solve_white(L, Linv, B):
     return _TriSolveWhite.apply(L, Linv, B)
 
 
+class WhitenedFactors(NamedTuple):
+    """The whitened factors of a parameter's group sets, each field a tuple
+    over the sets: W (S, n, M, M) = Lp^-1 @ tril_regularized(sqrt) of the
+    set's groups, and where the kernels computed them with W, the KL
+    pieces trace (S, n) = ||W||_F^2 and logdet_q (n) = sum log |diag
+    tril_regularized(sqrt)| (`kl_gaussian_white_parts`).  Elsewhere trace
+    and logdet_q are None and the KL takes them from W and the parameter,
+    as `kl_gaussian_white` does."""
+
+    W: Tuple[torch.Tensor, ...]
+    trace: Optional[Tuple[torch.Tensor, ...]]
+    logdet_q: Optional[Tuple[torch.Tensor, ...]]
+
+
+def whiten(T, Lp_invs, sizes):
+    """W = Lp_inv[..., None, :, :] @ T[set] of each group set, T (G, M, M)
+    cut into sets of `sizes` groups in order, each with its Lp_inv (S, M, M)
+    or (M, M)."""
+    Ws, start = [], 0
+    for Lp_inv, n in zip(Lp_invs, sizes):
+        Ws.append(torch.matmul(Lp_inv[..., None, :, :], T[start:start + n]))
+        start += n
+    return tuple(Ws)
+
+
+class _WhitenedFactors(torch.autograd.Function):
+    """(*Ws, *traces, *logdets) of `cuda_kernels.whitened_factors_cuda`: X
+    read once, each W written once, the KL pieces in the same pass; the
+    backward `whitened_factors_bwd_cuda` (X's gradient written once in its
+    layout, each Lp_inv's summed over its groups in the kernel).  Each
+    output's cotangent may be absent (a shard without the KL)."""
+
+    @staticmethod
+    def forward(ctx, X, jitter, sizes, *Lp_invs):
+        Lp_invs = tuple(P.contiguous() for P in Lp_invs)  # once, for both passes
+        Ws, traces, logdets = cuda_kernels.pick("whitened_factors", X, *Lp_invs)(
+            X, Lp_invs, sizes, jitter)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(X, *Lp_invs, *Ws)
+        ctx.jitter, ctx.sizes = jitter, sizes
+        return (*Ws, *traces, *logdets)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        k = len(ctx.sizes)
+        X, *saved = ctx.saved_tensors
+        Lp_invs, Ws = saved[:k], saved[k:]
+        if all(g is None for g in grads):
+            return (None, None, None) + (None,) * k
+        dX, dLp_invs = cuda_kernels.pick("whitened_factors_bwd", X, *Lp_invs)(
+            X, Lp_invs, ctx.sizes, ctx.jitter, Ws, grads[:k], grads[k:2 * k], grads[2 * k:])
+        return (dX, None, None, *dLp_invs)
+
+
+def whitened_factors(X, Lp_invs, sizes, jitter=DSVI_JITTER) -> WhitenedFactors:
+    """The whitened factors of a factor parameter X (G, M, M) whose groups
+    fall into sets of `sizes` groups in order (sqrt_U's offdiagonal and
+    diagonal groups, or sqrt_W's one set), each set with its prior inverse
+    factor Lp_inv (S, M, M): W = Lp_inv @ tril_regularized(X[set]).
+
+    On CUDA float32 tensors with M <= cuda_kernels.WHITENED_MAX_M one
+    `torch.autograd.Function` over two kernels (`_WhitenedFactors`), which
+    also gives the KL pieces ||W||_F^2 and sum log |diag|.  Elsewhere
+    (float64, the CPU, larger M) the plain composition of ops, op for op
+    what the model ran before the kernels: `tril_regularized` on the whole
+    X, its slices and one matmul a set, and no KL pieces (None: the KL
+    computes them from W and X where it needs them, so that autograd adds
+    W's gradients in the same order)."""
+    sizes = tuple(int(n) for n in sizes)
+    k = len(sizes)
+    if cuda_kernels.use_kernel(X, *Lp_invs) and X.shape[-1] <= cuda_kernels.WHITENED_MAX_M:
+        out = _WhitenedFactors.apply(X, jitter, sizes, *Lp_invs)
+        return WhitenedFactors(out[:k], out[k:2 * k], out[2 * k:])
+    return WhitenedFactors(whiten(tril_regularized(X, jitter), Lp_invs, sizes), None, None)
+
+
 def mgp_mean_var_white(A, Lp_inv, d11, mu, scale_tril):
     """Whitened marginalized sparse-GP moments of G coefficient groups:
 
@@ -431,11 +516,17 @@ def mgp_mean_var_white(A, Lp_inv, d11, mu, scale_tril):
     mean and var (..., G, N) and W (..., G, M, M).  The variance's
     quadratic form runs in the quadform kernel.
     """
+    (W,) = whiten(scale_tril, (Lp_inv,), (scale_tril.shape[0],))
+    return (*mgp_moments_white(A, Lp_inv, d11, mu, W), W)
+
+
+def mgp_moments_white(A, Lp_inv, d11, mu, W):
+    """`mgp_mean_var_white`'s mean and var from the whitened factors W
+    (..., G, M, M) = Lp_inv @ scale_tril, lower-triangular."""
     half_mu = torch.matmul(mu, Lp_inv.transpose(-1, -2))  # (..., G, M)
     mean = torch.matmul(half_mu, A)
     base = torch.clamp(d11 - torch.sum(A * A, dim=-2), min=0.0)
-    W = torch.matmul(Lp_inv[..., None, :, :], scale_tril)
-    return mean, base[..., None, :] + _quadform_diag(A, W), W
+    return mean, base[..., None, :] + _quadform_diag(A, W)
 
 
 class _QuadformDiag(torch.autograd.Function):
@@ -489,9 +580,15 @@ def kl_gaussian_white(mu_q, dq_reg, W, logdet_p, Lp_inv):
     Lp^-1 L̃ and `logdet_p` = sum log diag Lp.  Lp_inv and W may carry a
     leading draw dimension; `logdet_p` broadcasts against the result.
     """
-    m = mu_q.shape[-1]
     logdet_q = torch.sum(torch.log(torch.abs(dq_reg)), dim=-1)
     trace = torch.sum(W * W, dim=(-2, -1))
+    return kl_gaussian_white_parts(mu_q, logdet_q, trace, logdet_p, Lp_inv)
+
+
+def kl_gaussian_white_parts(mu_q, logdet_q, trace, logdet_p, Lp_inv):
+    """`kl_gaussian_white` from logdet_q = sum log |dq_reg| and trace =
+    ||W||_F^2, as `whitened_factors` gives them."""
+    m = mu_q.shape[-1]
     sol = torch.matmul(mu_q, Lp_inv.transpose(-1, -2))
     maha = torch.sum(sol * sol, dim=-1)
     return (logdet_p - logdet_q) + 0.5 * (trace + maha - m)

@@ -27,8 +27,10 @@ pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
 
 # the kernels a DSVI training step launches (the quadform's backward as the
-# fused kernel: both gradients, M within its limit)
-TRAIN_KERNELS = ("gibbs", "chol_inv", "quadform_diag", "quadform_diag_bwd")
+# fused kernel: both gradients, M within its limit; the whitened factors and
+# their backward)
+TRAIN_KERNELS = ("gibbs", "chol_inv", "quadform_diag", "quadform_diag_bwd", "whitened_factors",
+                 "whitened_factors_bwd")
 
 
 @pytest.fixture
@@ -388,6 +390,105 @@ def test_fused_backward_wrapper_refuses_what_the_kernel_does_not_take(dev):
     assert ck.max_m("quadform_diag_bwd") >= 200  # ECoG's M = 200
 
 
+def _whitened_inputs(dev, S, sizes, M, seed, dtype=torch.float32):
+    """A factor parameter X (G, M, M) of the group sets `sizes`, one prior
+    inverse factor (S, M, M) a set from a random SPD gram (float64, rounded),
+    and cotangents of every output: dW lower-triangular, the traces' and the
+    log-determinants'."""
+    g = _gen(dev, seed)
+    G = sum(sizes)
+    X = 0.1 * torch.randn(G, M, M, device=dev, generator=g, dtype=torch.float64)
+    Ps = []
+    for _ in sizes:
+        B = torch.randn(S, M, M, device=dev, generator=g, dtype=torch.float64)
+        K = B @ B.mT / M + 0.1 * torch.eye(M, device=dev, dtype=torch.float64)
+        L = torch.linalg.cholesky(K)
+        Ps.append(torch.linalg.solve_triangular(L, torch.eye(M, device=dev, dtype=torch.float64)
+                                                .expand_as(L), upper=False))
+    dWs = [torch.randn(S, n, M, M, device=dev, generator=g, dtype=torch.float64).tril()
+           for n in sizes]
+    dtrs = [torch.randn(S, n, device=dev, generator=g, dtype=torch.float64) for n in sizes]
+    dlds = [torch.randn(n, device=dev, generator=g, dtype=torch.float64) for n in sizes]
+    cast = lambda ts: tuple(t.to(dtype) for t in ts)  # noqa: E731
+    return X.to(dtype), cast(Ps), cast(dWs), cast(dtrs), cast(dlds)
+
+
+def _whitened_run(fwd, bwd, X, Ps, sizes, dWs, dtrs, dlds):
+    Ws, trs, lds = fwd(X, Ps, sizes, 1e-4)
+    dX, dPs = bwd(X, Ps, sizes, 1e-4, Ws, dWs, dtrs, dlds)
+    return [*Ws, *trs, *lds, dX, *dPs]
+
+
+def _rel(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300) if b.numel() else 0.0
+
+
+@pytest.mark.parametrize("S, sizes, M", [
+    (1, (3003, 78), 100), (1, (15, 6), 100), (1, (78,), 100), (3, (15, 6), 100), (1, (15, 6), 200),
+])
+def test_whitened_factors_kernels_against_float64(dev, S, sizes, M):
+    """The two kernels in float32 at ECoG's (3003 + 78 groups), PM2.5's
+    (15 + 6) and sqrt_W's sets, three draws and M = 200: every output and
+    gradient within float32 rounding of the float64 plain version (at most
+    3x the float32 plain version's error, or 2e-6 of its largest entry), one
+    launch of each kernel a call, and two runs bitwise equal."""
+    X, Ps, dWs, dtrs, dlds = _whitened_inputs(dev, S, sizes, M, 40 + M + S)
+    before = dict(ck.LAUNCHES)
+    got = _whitened_run(ck.whitened_factors_cuda, ck.whitened_factors_bwd_cuda, X, Ps, sizes,
+                        dWs, dtrs, dlds)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["whitened_factors"] == before["whitened_factors"] + 1
+    assert ck.LAUNCHES["whitened_factors_bwd"] == before["whitened_factors_bwd"] + 1
+    again = _whitened_run(ck.whitened_factors_cuda, ck.whitened_factors_bwd_cuda, X, Ps, sizes,
+                          dWs, dtrs, dlds)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    plain = _whitened_run(ck.whitened_factors_plain, ck.whitened_factors_bwd_plain, X, Ps, sizes,
+                          dWs, dtrs, dlds)
+    f64 = lambda ts: tuple(t.double() for t in ts)  # noqa: E731
+    ref = _whitened_run(ck.whitened_factors_plain, ck.whitened_factors_bwd_plain, X.double(),
+                        f64(Ps), sizes, f64(dWs), f64(dtrs), f64(dlds))
+    for k, (a, p, r) in enumerate(zip(got, plain, ref)):
+        assert a.shape == r.shape and a.dtype == torch.float32
+        assert _rel(a, r) <= max(3 * _rel(p, r), 2e-6), (k, _rel(a, r), _rel(p, r))
+    k = len(sizes)
+    for W in got[:k]:  # zeros above the diagonal, written
+        assert torch.equal(W, W.tril())
+
+
+def test_whitened_factors_kernel_nan_above_the_diagonal(dev):
+    """A NaN strictly above X's diagonal: W's column below it and the trace
+    NaN, as in the plain version; the other groups' untouched."""
+    X, Ps, _, _, _ = _whitened_inputs(dev, 1, (4, 3), 12, 5)
+    X[1, 2, 7] = float("nan")
+    X[5, 3, 3] = 0.0
+    Ws, trs, lds = ck.whitened_factors_cuda(X, Ps, (4, 3), 1e-4)
+    pW, ptr, pld = ck.whitened_factors_plain(X, Ps, (4, 3), 1e-4)
+    for a, b in zip(Ws + trs + lds, pW + ptr + pld):
+        a, b = (a.tril() if a.ndim == 4 else a), (b.tril() if b.ndim == 4 else b)
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+    assert torch.isnan(Ws[0][0, 1, 7:, 7]).all() and torch.isnan(trs[0][0, 1])
+    assert torch.isfinite(Ws[1]).all() and torch.isfinite(lds[0]).all()
+
+
+def test_whitened_factors_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    X, Ps, dWs, dtrs, dlds = _whitened_inputs(dev, 1, (3, 2), 8, 6)
+    with pytest.raises(TypeError):
+        ck.whitened_factors_cuda(X.double(), tuple(P.double() for P in Ps), (3, 2), 1e-4)
+    with pytest.raises(ValueError):
+        ck.whitened_factors_cuda(X, Ps, (3, 3), 1e-4)  # the sets do not cut X
+    with pytest.raises(ValueError):
+        ck.whitened_factors_cuda(X, (Ps[0][..., :-1, :-1], Ps[1]), (3, 2), 1e-4)
+    Ws, _, _ = ck.whitened_factors_cuda(X, Ps, (3, 2), 1e-4)
+    with pytest.raises(ValueError):
+        ck.whitened_factors_bwd_cuda(X, Ps, (3, 2), 1e-4, Ws, (dWs[0][:, :-1], dWs[1]), dtrs, dlds)
+    m = ck.max_m("whitened_factors") + 1
+    with pytest.raises(ValueError):
+        ck.whitened_factors_cuda(torch.ones(1, m, m, device=dev), (torch.ones(1, m, m, device=dev),),
+                                 (1,), 1e-4)
+    assert min(ck.max_m("whitened_factors"), ck.max_m("whitened_factors_bwd")) >= ck.WHITENED_MAX_M
+
+
 def test_float64_inference_on_the_card_launches_no_kernel(dev):
     """dtype=float64 takes the plain versions by the dispatch rule
     (`cuda_kernels.use_kernel`), as the JAX package takes Pallas only for
@@ -437,11 +538,14 @@ def _plain_versions():
 
 
 def test_negative_selbo_backward_on_the_card_matches_plain(dev):
-    """loss.backward() through all five kernels against the plain versions
-    on the same noise and batch.  Both float32 runs are held against a
+    """loss.backward() through all the step's kernels against the plain versions
+    on the same noises and batch.  Both float32 runs are held against a
     float64 run of the plain versions: the kernels may be at most 3x as far
     off as the plain versions, + 1e-5 of max (f32 through the prior
-    factorization)."""
+    factorization), each the worst over four noise draws: the variance
+    logs' gradients pass through the Cholesky-inverse backward of
+    ill-conditioned priors, where which float32 route lands nearer float64
+    on one draw is the rounding's chance."""
     D, M, B = 3, 12, 40
     g = _gen(dev, 0)
     params = cnmgp.init_params(g, D, M, device=dev)
@@ -456,9 +560,9 @@ def test_negative_selbo_backward_on_the_card_matches_plain(dev):
     idx = torch.randint(0, D, (B,), device=dev, generator=g)
     y = torch.sin(6 * x)
     w = torch.ones(B, device=dev)
-    noise = cnmgp.draw_train_noise(g, 1, M, B, D)
+    noises = [cnmgp.draw_train_noise(g, 1, M, B, D) for _ in range(4)]
 
-    def grads(dtype):
+    def grads(dtype, noise):
         p = cnmgp.CNMGPParams(*(t.detach().to(dtype).clone().requires_grad_(True) for t in params))
         nz = cnmgp.CNMGPNoise(*(None if z is None else z.to(dtype) for z in noise))
         loss = cnmgp.negative_selbo(p, Z.to(dtype), x.to(dtype), y.to(dtype), idx, w.to(dtype),
@@ -467,16 +571,19 @@ def test_negative_selbo_backward_on_the_card_matches_plain(dev):
         return [t.grad for t in p]
 
     ck.reset_launches()
-    g_kernel = grads(torch.float32)
+    g_kernel = [grads(torch.float32, nz) for nz in noises]
     torch.cuda.synchronize()
     assert all(ck.LAUNCHES[k] > 0 for k in TRAIN_KERNELS), ck.LAUNCHES
     with _plain_versions():
-        g_plain = grads(torch.float32)
-        g_64 = grads(torch.float64)
-    for name, gk, gp, g64 in zip(cnmgp.CNMGPParams._fields, g_kernel, g_plain, g_64):
-        scale = float(g64.abs().max())
-        err_k = float((gk.double() - g64).abs().max())
-        err_p = float((gp.double() - g64).abs().max())
+        g_plain = [grads(torch.float32, nz) for nz in noises]
+        g_64 = [grads(torch.float64, nz) for nz in noises]
+
+    def worst(got, i):
+        return max(float((a[i].double() - r[i]).abs().max()) for a, r in zip(got, g_64))
+
+    for i, name in enumerate(cnmgp.CNMGPParams._fields):
+        scale = max(float(r[i].abs().max()) for r in g_64)
+        err_k, err_p = worst(g_kernel, i), worst(g_plain, i)
         assert err_k <= 3 * err_p + 1e-5 * scale, (name, err_k, err_p, scale)
 
 
@@ -1117,6 +1224,25 @@ def test_a_captured_dsvi_step_launches_the_fused_backward_three_times(dev):
     assert graphs.step_launches["quadform_diag_dw"] == graphs.step_launches["quadform_diag_da"] == 0
     assert ck.REPLAYED["quadform_diag_bwd"] == 3 * 4  # 4 steps an epoch
     assert ck.LAUNCHES["quadform_diag_dw"] == ck.LAUNCHES["quadform_diag_da"] == 0
+
+
+def test_a_captured_dsvi_step_launches_the_whitened_factors_twice_each_way(dev):
+    """The step graph records the whitened factors' kernel twice (sqrt_U's
+    two group sets in one launch, sqrt_W's in another) and their backward
+    twice; its kernel nodes are fewer than with the two routed to their
+    plain versions."""
+    p, mask, Z, x, y, idx, run, _ = _scan_problem(dev, torch.float32)
+    run(p, mask, Z, x, y, idx, _gen(dev, 7), 1)
+    (graphs,) = run.graphs.values()
+    assert graphs.step_launches["whitened_factors"] == 2, graphs.step_launches
+    assert graphs.step_launches["whitened_factors_bwd"] == 2, graphs.step_launches
+    p2, mask2, _, _, _, _, run2, _ = _scan_problem(dev, torch.float32)
+    with ck.plain_versions(("whitened_factors", "whitened_factors_bwd")):
+        run2(p2, mask2, Z, x, y, idx, _gen(dev, 7), 1)
+    (plain,) = run2.graphs.values()
+    assert plain.step_launches["whitened_factors"] == plain.step_launches["whitened_factors_bwd"] == 0
+    assert graphs.step_kernels is not None and plain.step_kernels is not None
+    assert graphs.step_kernels < plain.step_kernels, (graphs.step_kernels, plain.step_kernels)
 
 
 def test_scan_epochs_replays_draw_anew_from_the_generator(dev):

@@ -55,8 +55,9 @@ def _inputs(dtype, d=1):
     x2 = np.sort(r.random((M, d)), axis=0) if d > 1 else np.sort(r.random(M))
     ell1, ell2 = np.exp(0.2 * r.standard_normal(N)), np.exp(0.2 * r.standard_normal(M))
     B, Kk, y = r.standard_normal((2, 2)), r.standard_normal((N, N)), r.standard_normal(2 * N)
+    X, Lw = r.standard_normal((G, M, M)), np.tril(r.standard_normal((1, M, M))) + 2 * np.eye(M)
     return {k: _t(v, dtype).requires_grad_(True) for k, v in dict(
-        A=A, K=K, W=W, x1=x1, x2=x2, ell1=ell1, ell2=ell2, B=B, Kk=Kk, y=y).items()}
+        A=A, K=K, W=W, x1=x1, x2=x2, ell1=ell1, ell2=ell2, B=B, Kk=Kk, y=y, X=X, Lw=Lw).items()}
 
 
 # each op of ops/ that has a kernel: (the wrappers its forward and backward
@@ -69,7 +70,16 @@ CALL_SITES = {
     "gibbs": (("gibbs",), lambda p: kernels.gibbs(p["x1"], p["x2"], p["ell1"], p["ell2"], 1.3)),
     "rbf": (("rbf",), lambda p: kernels.rbf(p["x1"], p["x2"], 1.3, 0.4)),
     "kron_mv": (("kron_mv",), lambda p: kron.kron_mv(p["B"], p["Kk"], p["y"])),
+    "whitened_factors": (("whitened_factors", "whitened_factors_bwd"), lambda p: _whitened(p)),
 }
+
+
+def _whitened(p):
+    """Every output of `whitened_factors` on two group sets, flattened (the
+    KL pieces where the route gives them)."""
+    wf = linalg.whitened_factors(p["X"], (p["Lw"], p["Lw"]), (2, 1), 1e-4)
+    pieces = wf.W + (wf.trace + wf.logdet_q if wf.trace is not None else ())
+    return torch.cat([t.flatten() for t in pieces])
 
 
 def _run(site, dtype, d=1, bwd_max_m=512):
