@@ -790,8 +790,10 @@ def small_problem(tc, dev, seed):
     """The small model of `tests/test_torch_cuda.py::
     test_negative_selbo_backward_on_the_card_matches_plain` (D=3, M=12,
     B=40), drawn as that test draws it from a generator seeded `seed` (the
-    test's own draw is seed 0).  Returns grads(dtype) -> every parameter's
-    gradient."""
+    test's own draw is seed 0).  Returns grads(dtype, witness=False) ->
+    every parameter's gradient; with `witness`, also the test's float64
+    witness of each: the largest entry of the prior stack's vector-Jacobian
+    product toward the parameter with cotangent |fl32(dK) - dK|."""
     D, M, B = 3, 12, 40
     g = torch.Generator(device=dev).manual_seed(seed)
     params = tc.init_params(g, D, M, device=dev)
@@ -808,13 +810,29 @@ def small_problem(tc, dev, seed):
     w = torch.ones(B, device=dev)
     noise = tc.draw_train_noise(g, 1, M, B, D)
 
-    def grads(dtype):
+    def grads(dtype, witness=False):
         p = tc.CNMGPParams(*(t.detach().to(dtype).clone().requires_grad_(True) for t in params))
         nz = tc.CNMGPNoise(*(None if z is None else z.to(dtype) for z in noise))
-        loss = tc.negative_selbo(p, Z.to(dtype), x.to(dtype), y.to(dtype), idx, w.to(dtype),
-                                 1000.0, nz)
-        loss.backward()
-        return [t.grad for t in p]
+        stacks = []
+
+        def keep(factor):
+            def run(K, *args):
+                stacks.append(K)
+                return factor(K, *args)
+            return run
+
+        with mock.patch.object(tc, "chol_tri_inv", keep(tc.chol_tri_inv)), \
+                mock.patch.object(tc, "chol_tri_inv_robust", keep(tc.chol_tri_inv_robust)):
+            loss = tc.negative_selbo(p, Z.to(dtype), x.to(dtype), y.to(dtype), idx,
+                                     w.to(dtype), 1000.0, nz)
+        if not witness:
+            loss.backward()
+            return [t.grad for t in p]
+        (K,) = stacks
+        dK, *got = torch.autograd.grad(loss, (K, *p), retain_graph=True)
+        moved = torch.autograd.grad(K, tuple(p), (dK.float().double() - dK).abs(),
+                                    allow_unused=True)
+        return got, np.array([0.0 if m is None else float(m.abs().max()) for m in moved])
 
     return grads
 
@@ -887,7 +905,8 @@ def chol_inv_witness(ck, tc, dev, smi):
     """The study of chol_inv's factor rounding.  Witness (a) is the ECoG gradient
     gate (`ecog_gradients`: lengthscales 40, three row orders, tolerance 3x
     the worst plain error + 1e-5 of max), witness (b) the card test's small
-    model (D=3, M=12, B=40, tolerance 3x the plain error + 1e-5 of max).
+    model (D=3, M=12, B=40, tolerance 3x the larger of the plain error and
+    the test's float64 witness, + 1e-5 of max).
     Each draw runs every route of `witness_routes` and prints each route's
     worst parameter error / tolerance, then the factor alone on the draw's
     prior stack (the first input chol_inv gets) against float64, for the
@@ -919,11 +938,14 @@ def chol_inv_witness(ck, tc, dev, smi):
                 grads = small_problem(tc, dev, d)
                 with ck.plain_versions():
                     g_p = [grads(torch.float32)]
-            g64 = grads(torch.float64)
+            if witness == "a":
+                g64, wit = grads(torch.float64), 0.0
+            else:
+                g64, wit = grads(torch.float64, witness=True)
             scale = [float(g.abs().max()) for g in g64]
             err = lambda gs: np.array([rel_to_max(a, b)[0] for a, b in zip(gs, g64)])  # noqa: E731
             err_p = np.max([err(g) for g in g_p], axis=0)
-            tol = 3 * err_p + 1e-5 * np.array(scale)
+            tol = 3 * np.maximum(err_p, wit) + 1e-5 * np.array(scale)
             ratio = {}
             for route, context in routes.items():
                 if route == "plain":
@@ -1469,27 +1491,15 @@ def whitened_inputs(gen, dev, S, sizes, M):
     return X, Ps, dWs, dtrs, dlds
 
 
-def whitened_composed(linalg, X, Ps, sizes):
-    """The chain as the model ran it before the kernels: tril_regularized on
-    the whole parameter, a slice and a matmul a set, the KL's ||W||^2 and
-    log-determinant from W and the parameter's slices."""
-    Ws = linalg.whiten(linalg.tril_regularized(X, JITTER), Ps, sizes)
-    out = list(Ws) + [torch.sum(W * W, dim=(-2, -1)) for W in Ws]
-    start = 0
-    for n in sizes:
-        dq = linalg.regularized_diag(X[start:start + n], JITTER)
-        out.append(torch.sum(torch.log(torch.abs(dq)), dim=-1))
-        start += n
-    return out
-
-
-def whitened_rows(ck, linalg, dev, smi):
+def whitened_rows(ck, dev, smi):
     """The whitened factors' two kernels at WHITENED_SHAPES: each output and
     gradient against the float64 plain version (at most 3x the float32
-    plain version's error, or 2e-6 of max), then the kernels, their plain
-    versions and the model's former composition (forward; backward by
-    autograd on the same cotangents) timed, with the bytes bound at 3.35
-    TB/s.  Returns the JSON rows."""
+    plain version's error, or 2e-6 of max), then the kernels and their plain
+    versions timed, with the bytes bound at 3.35 TB/s.  The plain versions
+    are the model's former composition; the backward's yardstick is that
+    composition's backward alone (autograd on a kept graph, the same
+    cotangents), as the plain backward runs its forward again.  Returns
+    the JSON rows."""
     rows = []
     for i, (what, S, sizes, M) in enumerate(WHITENED_SHAPES):
         gen = torch.Generator(device=dev).manual_seed(60 + i)
@@ -1520,12 +1530,12 @@ def whitened_rows(ck, linalg, dev, smi):
         bwd_ops = 2 * S * G * (M * (M + 1) * (M + 2) // 6 + M * (M + 1) * (2 * M + 1) // 6)
         Xg = X.clone().requires_grad_(True)
         Pg = tuple(P.clone().requires_grad_(True) for P in Ps)
-        outs = whitened_composed(linalg, Xg, Pg, sizes)
+        outs = [t for ts in ck.whitened_factors_plain(Xg, Pg, sizes, JITTER) for t in ts]
         cots = [*dWs, *dtrs, *dlds]
         rows.append(timing_entry(
             f"whitened_factors {what} forward", lambda: ck.whitened_factors_cuda(X, Ps, sizes, JITTER),
-            lambda: ck.whitened_factors_plain(X, Ps, sizes, JITTER),
-            lambda: whitened_composed(linalg, X, Ps, sizes), bound_ms(fwd_bytes, fwd_ops)))
+            lambda: ck.whitened_factors_plain(X, Ps, sizes, JITTER), None,
+            bound_ms(fwd_bytes, fwd_ops)))
         Ws = ck.whitened_factors_cuda(X, Ps, sizes, JITTER)[0]
         rows.append(timing_entry(
             f"whitened_factors_bwd {what}",
@@ -1537,7 +1547,7 @@ def whitened_rows(ck, linalg, dev, smi):
             row.update(S=S, sets=list(sizes), M=M, card=smi)
         fwd, bwd = rows[-2], rows[-1]
         print(f"whitened factors {what}: kernels {fwd['ms'] + bwd['ms']:.4f} ms forward and "
-              f"backward, the former composition {fwd['library_ms'] + bwd['library_ms']:.4f} ms "
+              f"backward, the former composition {fwd['plain_ms'] + bwd['library_ms']:.4f} ms "
               f"({smi})", flush=True)
     return rows
 
@@ -1551,7 +1561,6 @@ def whitened_main() -> int:
     from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops import (
         cuda_kernels as ck,
     )
-    from collaborative_nonstationary_multivariate_gaussian_process_tpu_torch.ops import linalg
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
@@ -1563,7 +1572,7 @@ def whitened_main() -> int:
         print(f"build {name}:\n{log}")
     print(f"max_m: {ck.max_m('whitened_factors')} forward, {ck.max_m('whitened_factors_bwd')} "
           f"backward ({smi})")
-    rows = whitened_rows(ck, linalg, torch.device("cuda"), smi)
+    rows = whitened_rows(ck, torch.device("cuda"), smi)
     print(json.dumps({"whitened_factors": rows}))
     for f in FAILURES:
         print("FAILED: " + f)
@@ -3015,7 +3024,9 @@ MD_RATE_BAND = 0.03
 # the training kernels' names in a profiler trace
 TRACE_NAMES = {"gibbs": "gibbs_kernel", "chol_inv": "chol_inv", "quadform_diag": "quadform_diag_kernel",
                "quadform_diag_dw": "quadform_diag_dw", "quadform_diag_da": "quadform_diag_da",
-               "quadform_diag_bwd": "quadform_diag_bwd_kernel"}
+               "quadform_diag_bwd": "quadform_diag_bwd_kernel",
+               "whitened_factors": "whitened_factors_kernel",
+               "whitened_factors_bwd": "whitened_factors_bwd_kernel"}
 
 
 def native_check(smi):
@@ -3675,7 +3686,7 @@ def main() -> int:
     more = {"cholesky": cholesky_routes(ck, gen, dev, smi), "kron_mv": kron_layouts(ck, gen, dev, smi),
             "quadform_diag": qf_rows, "gibbs": gibbs_rows, "rbf": rbf_rows,
             "chol_inv": chol_inv_shapes(ck, torch.Generator(device=dev).manual_seed(9), dev, smi),
-            "whitened_factors": whitened_rows(ck, linalg, dev, smi)}
+            "whitened_factors": whitened_rows(ck, dev, smi)}
     t0 = time.perf_counter()
     sn_launched = fb_snmgp(ck, dev, smi)
     print(f"SNMGP phase {time.perf_counter() - t0:.1f} s; launches {sn_launched}")

@@ -438,28 +438,27 @@ def _kl_terms(params: CNMGPParams, lat: _Latents, jitter=DSVI_JITTER, kl_mode="t
     Lp_diag = torch.diagonal(lat.Lp_all, dim1=-2, dim2=-1)  # (S, 4, M)
     logdet_p = torch.sum(torch.log(Lp_diag), dim=-1)  # (S, 4)
 
-    def kl(mu_q, prior, grouped, sqrt_q, wh, k=0):
+    def kl(mu_q, sqrt_q, wh, prior, grouped, k=0):
         # a group of G factors broadcasts (S, 1) prior scalars against (S, G);
-        # `sqrt_q()` gives the factor parameter's groups, taken only where
-        # read; `wh` is v's whitened factor, or the group sets'
-        # `WhitenedFactors` and k the set
+        # `wh` is v's whitened factor, or the group sets' `WhitenedFactors`
+        # and k the set
         ld = logdet_p[:, prior, None] if grouped else logdet_p[:, prior]
         lp_inv = lat.Lp_inv[:, prior]
         if kl_mode == "ref_compat":
             lp_d = Lp_diag[:, prior, None, :] if grouped else Lp_diag[:, prior]
-            out = kl_gaussian_ref_compat(mu_q, tril_mask(sqrt_q()), lp_d, ld, lp_inv, jitter)
+            out = kl_gaussian_ref_compat(mu_q, tril_mask(sqrt_q), lp_d, ld, lp_inv, jitter)
         elif grouped and wh.trace is not None:
             out = kl_gaussian_white_parts(mu_q, wh.logdet_q[k], wh.trace[k], ld, lp_inv)
         else:
             W = wh.W[k] if grouped else wh
-            out = kl_gaussian_white(mu_q, regularized_diag(sqrt_q(), jitter), W, ld, lp_inv)
+            out = kl_gaussian_white(mu_q, regularized_diag(sqrt_q, jitter), W, ld, lp_inv)
         return torch.sum(out, dim=-1) if grouped else out
 
-    kl_W = kl(params.mu_W, 3, True, lambda: params.sqrt_W, lat.Wh_W)
-    kl_v = kl(params.mu_v, 0, False, lambda: params.sqrt_v, lat.Wh_v)
-    kl_U = kl(params.mu_U[T0:], 2, True, lambda: params.sqrt_U[T0:], lat.Wh_U, 1)
+    kl_W = kl(params.mu_W, params.sqrt_W, lat.Wh_W, 3, True)
+    kl_v = kl(params.mu_v, params.sqrt_v, lat.Wh_v, 0, False)
+    kl_U = kl(params.mu_U[T0:], params.sqrt_U[T0:], lat.Wh_U, 2, True, 1)
     if D > 1:
-        kl_U = kl_U + kl(params.mu_U[:T0], 1, True, lambda: params.sqrt_U[:T0], lat.Wh_U, 0)
+        kl_U = kl_U + kl(params.mu_U[:T0], params.sqrt_U[:T0], lat.Wh_U, 1, True, 0)
     return kl_W, kl_v, kl_U
 
 

@@ -24,7 +24,9 @@ the JAX package leaves to XLA's fusion), and each has:
     `cholesky_plain`, `chol_inv_plain`, `quadform_diag_plain`,
     `quadform_diag_dw_plain`, `quadform_diag_da_plain`,
     `quadform_diag_bwd_plain`, `whitened_factors_plain`,
-    `whitened_factors_bwd_plain`) with the same math.  The CPU tests run it, and
+    `whitened_factors_bwd_plain`) with the same math (the last two the
+    composition of ops the model runs off the card, and its vector-Jacobian
+    product by autograd).  The CPU tests run it, and
     `chip_smoke.py` holds each kernel against it on the card.
 
 Which of the two an op of `ops/` runs is one stated rule, `use_kernel`
@@ -106,7 +108,6 @@ __all__ = [
     "whitened_factors_plain",
     "whitened_factors_bwd_cuda",
     "whitened_factors_bwd_plain",
-    "WHITENED_MAX_M",
     "max_m",
 ]
 
@@ -141,11 +142,6 @@ CHOL_INV_CROSSOVER_M = 240
 QF_BWD_FUSED_MAX_M = 112
 QF_BWD_FUSED_MAX_N = 512
 QF_BWD_FUSED_MAX_G_WIDE = 15
-
-# The largest M at which the whitened factors run their kernels: the fused
-# quadform backward's range (its max_m on the H100), the M the DSVI step
-# takes the kernels at.
-WHITENED_MAX_M = 208
 
 # The largest input dimension the Gibbs kernel takes (the JAX function takes any).
 GIBBS_MAX_DIM = 4
@@ -922,39 +918,23 @@ def quadform_bwd_route(A, W) -> str:
 #   trace_set = ||W_set||_F^2 (S, n), logdet_set = sum log |diag T[set]| (n).
 
 
-def _regularized(X, jitter):
-    """(T, d, r, sign) of `linalg.tril_regularized`: T = tril(X) (masked by
-    a multiply) with diagonal sign(d) r, r = sqrt(d^2 + jitter)."""
-    d = torch.diagonal(X, dim1=-2, dim2=-1)
-    r = torch.sqrt(d * d + jitter)
-    sign = torch.where(d >= 0, 1.0, -1.0).to(X.dtype)
-    eye = torch.eye(X.shape[-1], dtype=torch.bool, device=X.device)
-    mask = torch.ones(X.shape[-2:], dtype=X.dtype, device=X.device).tril()
-    return torch.where(eye, (sign * r)[..., :, None] * eye, X * mask), d, r, sign
-
-
-def _cut(sizes):
-    """(start, stop) of each group set."""
-    bounds, start = [], 0
-    for n in sizes:
-        bounds.append((start, start + n))
-        start += n
-    return bounds
-
-
 def whitened_factors_plain(X, Ps, sizes, jitter):
-    """(Ws, traces, logdets), each a tuple over the group sets, in plain
-    PyTorch: the math of `csrc/whitened_factors.cu`.  X (G, M, M); Ps a
+    """(Ws, traces, logdets), each a tuple over the group sets: the
+    composition of ops the model runs off the card (`linalg.tril_regularized`
+    on the whole X, `linalg.whiten`, ||W||^2 summed, the log of
+    `linalg.regularized_diag` of each set's groups).  X (G, M, M); Ps a
     (S, M, M) lower-triangular factor a set; `sizes` the sets' group counts
     (summing to G), in X's order."""
-    T, _, r, _ = _regularized(X, jitter)
-    Ws, traces, logdets = [], [], []
-    for P, (a, b) in zip(Ps, _cut(sizes)):
-        W = torch.matmul(P[:, None], T[a:b])
-        Ws.append(W)
-        traces.append(torch.sum(W * W, dim=(-2, -1)))
-        logdets.append(torch.sum(torch.log(r[a:b]), dim=-1))
-    return tuple(Ws), tuple(traces), tuple(logdets)
+    from . import linalg  # linalg imports this module
+
+    Ws = linalg.whiten(linalg.tril_regularized(X, jitter), Ps, sizes)
+    traces = tuple(torch.sum(W * W, dim=(-2, -1)) for W in Ws)
+    logdets, start = [], 0
+    for n in sizes:
+        dq = linalg.regularized_diag(X[start:start + n], jitter)
+        logdets.append(torch.sum(torch.log(torch.abs(dq)), dim=-1))
+        start += n
+    return Ws, traces, tuple(logdets)
 
 
 def _check_whitened(name, X, Ps, sizes):
@@ -1011,28 +991,18 @@ def whitened_factors_cuda(X, Ps, sizes, jitter):
 
 def whitened_factors_bwd_plain(X, Ps, sizes, jitter, Ws, dWs, dtrs, dlds):
     """(dX, dPs) of `whitened_factors_plain` for the cotangents dWs, dtrs and
-    dlds (each a tuple over the sets, an entry None where absent), in plain
-    PyTorch: the math of `csrc/whitened_factors_bwd.cu`.  With E = tril(dW +
-    2 dtrace W), dT_g = sum_s P_s^T E_sg and dP_s = sum_g E_sg T_g^T (whole,
-    as the product's backward gives it); dX is dT's strict lower triangle,
-    zero above, and on the diagonal dT_kk sign(d) d / r + dlogdet d / r^2."""
-    T, d, r, sign = _regularized(X, jitter)
-    dT = torch.zeros_like(X)
-    dlog = torch.zeros_like(d)
-    dPs = []
-    for P, W, dW, dtr, dld, (a, b) in zip(Ps, Ws, dWs, dtrs, dlds, _cut(sizes)):
-        E = torch.zeros_like(W)
-        if dW is not None:
-            E = E + dW
-        if dtr is not None:
-            E = E + 2.0 * dtr[..., None, None] * W
-        E = E.tril()
-        dT[a:b] = torch.einsum("smi,sgmk->gik", P, E)
-        dPs.append(torch.einsum("sgik,gmk->sim", E, T[a:b]))
-        if dld is not None:
-            dlog[a:b] = dld[:, None] * (d[a:b] / (r[a:b] * r[a:b]))
-    diag = torch.diagonal(dT, dim1=-2, dim2=-1) * (sign * d / r) + dlog
-    return torch.diagonal_scatter(dT.tril(-1), diag, dim1=-2, dim2=-1), tuple(dPs)
+    dlds (each a tuple over the sets, an entry None where absent): the
+    composition's vector-Jacobian product by autograd, its forward run
+    again (Ws, the kernel's saved outputs, are not read)."""
+    with torch.enable_grad():
+        X = X.detach().requires_grad_(True)
+        Ps = tuple(P.detach().requires_grad_(True) for P in Ps)
+        outs = [t for ts in whitened_factors_plain(X, Ps, sizes, jitter) for t in ts]
+        given = [(t, d) for t, d in zip(outs, (*dWs, *dtrs, *dlds)) if d is not None]
+        grads = torch.autograd.grad([t for t, _ in given], (X, *Ps), [d for _, d in given],
+                                    allow_unused=True)
+    dX, *dPs = (torch.zeros_like(t) if d is None else d for t, d in zip((X, *Ps), grads))
+    return dX, tuple(dPs)
 
 
 @_spanned

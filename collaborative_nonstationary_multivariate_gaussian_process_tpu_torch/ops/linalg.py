@@ -9,7 +9,7 @@ tensors, sparse-GP conditioning, the fused Cholesky + triangular inverse and
 the whitened forward substitution (each a `torch.autograd.Function` with the
 JAX package's matmul-only backward), the whitened coefficient factors with
 their KL pieces (a `torch.autograd.Function` over two kernels of the port's
-own on the card, today's composition of ops elsewhere), the whitened
+own on the card, a composition of ops elsewhere), the whitened
 marginal moments (whose quadratic form is a `torch.autograd.Function` over
 the forward and backward quadform kernels), the Gaussian KLs, and the dense
 conditioning of the
@@ -463,8 +463,7 @@ class _WhitenedFactors(torch.autograd.Function):
     @staticmethod
     def forward(ctx, X, jitter, sizes, *Lp_invs):
         Lp_invs = tuple(P.contiguous() for P in Lp_invs)  # once, for both passes
-        Ws, traces, logdets = cuda_kernels.pick("whitened_factors", X, *Lp_invs)(
-            X, Lp_invs, sizes, jitter)
+        Ws, traces, logdets = cuda_kernels.whitened_factors_cuda(X, Lp_invs, sizes, jitter)
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(X, *Lp_invs, *Ws)
         ctx.jitter, ctx.sizes = jitter, sizes
@@ -477,7 +476,7 @@ class _WhitenedFactors(torch.autograd.Function):
         Lp_invs, Ws = saved[:k], saved[k:]
         if all(g is None for g in grads):
             return (None, None, None) + (None,) * k
-        dX, dLp_invs = cuda_kernels.pick("whitened_factors_bwd", X, *Lp_invs)(
+        dX, dLp_invs = cuda_kernels.whitened_factors_bwd_cuda(
             X, Lp_invs, ctx.sizes, ctx.jitter, Ws, grads[:k], grads[k:2 * k], grads[2 * k:])
         return (dX, None, None, *dLp_invs)
 
@@ -486,19 +485,22 @@ def whitened_factors(X, Lp_invs, sizes, jitter=DSVI_JITTER) -> WhitenedFactors:
     """The whitened factors of a factor parameter X (G, M, M) whose groups
     fall into sets of `sizes` groups in order (sqrt_U's offdiagonal and
     diagonal groups, or sqrt_W's one set), each set with its prior inverse
-    factor Lp_inv (S, M, M): W = Lp_inv @ tril_regularized(X[set]).
+    factor Lp_inv (S, M, M): W = Lp_inv @ tril_regularized(X[set]), with
+    the KL pieces ||W||_F^2 and sum log |diag|.
 
-    On CUDA float32 tensors with M <= cuda_kernels.WHITENED_MAX_M one
-    `torch.autograd.Function` over two kernels (`_WhitenedFactors`), which
-    also gives the KL pieces ||W||_F^2 and sum log |diag|.  Elsewhere
-    (float64, the CPU, larger M) the plain composition of ops, op for op
-    what the model ran before the kernels: `tril_regularized` on the whole
-    X, its slices and one matmul a set, and no KL pieces (None: the KL
-    computes them from W and X where it needs them, so that autograd adds
-    W's gradients in the same order)."""
+    Where `cuda_kernels.use_kernel` holds and M is within both kernels'
+    `max_m`, one `torch.autograd.Function` over the two kernels
+    (`_WhitenedFactors`), which also gives the KL pieces ||W||_F^2 and
+    sum log |diag|.  Elsewhere (float64, the CPU, larger M) the composition
+    of ops the model ran before the kernels: `tril_regularized` on the
+    whole X, its slices and one matmul a set, and no KL pieces (None: the
+    KL computes them from W and X, so that autograd adds W's gradients in
+    the same order and the numbers stay bit for bit)."""
     sizes = tuple(int(n) for n in sizes)
     k = len(sizes)
-    if cuda_kernels.use_kernel(X, *Lp_invs) and X.shape[-1] <= cuda_kernels.WHITENED_MAX_M:
+    if cuda_kernels.use_kernel(X, *Lp_invs) and X.shape[-1] <= min(
+            cuda_kernels.max_m(name, X.device) for name in ("whitened_factors",
+                                                             "whitened_factors_bwd")):
         out = _WhitenedFactors.apply(X, jitter, sizes, *Lp_invs)
         return WhitenedFactors(out[:k], out[k:2 * k], out[2 * k:])
     return WhitenedFactors(whiten(tril_regularized(X, jitter), Lp_invs, sizes), None, None)

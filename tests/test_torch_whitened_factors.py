@@ -6,9 +6,11 @@ before the kernels, op for op: `tril_regularized` on the whole parameter,
 its slices, one matmul a group set, and the KL's trace and log-determinant
 taken by `kl_gaussian_white`.  On the card it is `_WhitenedFactors`, a
 `torch.autograd.Function` over two kernels whose plain versions
-(`cuda_kernels.whitened_factors_plain`, `whitened_factors_bwd_plain`) its
-wrappers return for CPU tensors; here that Function is held against the
-composition, values and gradients, then inside `negative_selbo`.
+(`cuda_kernels.whitened_factors_plain`, the same composition with the KL
+pieces, and `whitened_factors_bwd_plain`, its vector-Jacobian product by
+autograd) its wrappers return for CPU tensors; here that Function is held
+against the composition, values and gradients, then inside
+`negative_selbo`.
 """
 
 import math
