@@ -9,7 +9,8 @@ package imports neither JAX nor that package.  Plain tensor code is
 PyTorch; the eight Pallas kernels (Gibbs and RBF grams, Cholesky, fused
 Cholesky + triangular inverse, Kronecker matvec, variance quadratic form
 and its two backward kernels) are hand-written CUDA kernels under `csrc/`,
-built with `nvcc` at first use.
+with three of the port's own (the quadform's fused backward, the whitened
+coefficient factors and their backward), built with `nvcc` at first use.
 """
 
 from . import config, infer, models, ops, utils  # noqa: F401

@@ -429,10 +429,10 @@ def _kl_terms(params: CNMGPParams, lat: _Latents, jitter=DSVI_JITTER, kl_mode="t
     """The three KL groups (kl_W, kl_v, kl_U), each (S,), from the pieces
     `_sample_latents` computed (JAX `_kl_terms`, cnmgp.py:386-454).
     kl_mode "true": the exact KL of the regularized factor family, from the
-    traces and log-determinants the kernels gave with the whitened factors
-    (`whitened_factors`), else from the whitened factors and the regularized
-    diagonals.  "ref_compat": the
-    reference's KL on raw tril factors, its diagonal-only trace included."""
+    traces and log-determinants `whitened_factors` gave with the group sets'
+    whitened factors (v's from its factor and regularized diagonal).
+    "ref_compat": the reference's KL on raw tril factors, its diagonal-only
+    trace included."""
     D = params.num_outputs
     T0 = D * (D - 1) // 2
     Lp_diag = torch.diagonal(lat.Lp_all, dim1=-2, dim2=-1)  # (S, 4, M)
@@ -447,11 +447,10 @@ def _kl_terms(params: CNMGPParams, lat: _Latents, jitter=DSVI_JITTER, kl_mode="t
         if kl_mode == "ref_compat":
             lp_d = Lp_diag[:, prior, None, :] if grouped else Lp_diag[:, prior]
             out = kl_gaussian_ref_compat(mu_q, tril_mask(sqrt_q), lp_d, ld, lp_inv, jitter)
-        elif grouped and wh.trace is not None:
+        elif grouped:
             out = kl_gaussian_white_parts(mu_q, wh.logdet_q[k], wh.trace[k], ld, lp_inv)
         else:
-            W = wh.W[k] if grouped else wh
-            out = kl_gaussian_white(mu_q, regularized_diag(sqrt_q, jitter), W, ld, lp_inv)
+            out = kl_gaussian_white(mu_q, regularized_diag(sqrt_q, jitter), wh, ld, lp_inv)
         return torch.sum(out, dim=-1) if grouped else out
 
     kl_W = kl(params.mu_W, params.sqrt_W, lat.Wh_W, 3, True)

@@ -12,28 +12,28 @@ the JAX package leaves to XLA's fusion), and each has:
     `chol_inv_cuda`, `quadform_diag_cuda`, `quadform_diag_dw_cuda`,
     `quadform_diag_da_cuda`, `quadform_diag_bwd_cuda`,
     `whitened_factors_cuda`, `whitened_factors_bwd_cuda`) that launches the
-    kernel for a CUDA tensor and counts the launch in `LAUNCHES`, each call
-    the span `kernel.<name>` (`utils.profiling.span`: its checks,
-    allocations and the ctypes call);
-    given a CPU tensor it returns the plain version instead.  A launch
-    recorded into a CUDA graph being captured is not one: it is tallied
-    apart (`take_captured`), and each replay of the graph adds the tally to
-    `LAUNCHES` and `REPLAYED` (`count_replay`).  For a CUDA tensor it
-    launches or raises: there is no fallback;
+    kernel for CUDA float32 tensors, or raises, and counts the launch in
+    `LAUNCHES`, each call the span `kernel.<name>` (`utils.profiling.span`:
+    its checks, allocations and the ctypes call).  A launch recorded into a
+    CUDA graph being captured is not one: it is tallied apart
+    (`take_captured`), and each replay of the graph adds the tally to
+    `LAUNCHES` and `REPLAYED` (`count_replay`);
   - a plain PyTorch version (`gibbs_plain`, `rbf_plain`, `kron_mv_plain`,
     `cholesky_plain`, `chol_inv_plain`, `quadform_diag_plain`,
     `quadform_diag_dw_plain`, `quadform_diag_da_plain`,
     `quadform_diag_bwd_plain`, `whitened_factors_plain`,
     `whitened_factors_bwd_plain`) with the same math (the last two the
-    composition of ops the model runs off the card, and its vector-Jacobian
-    product by autograd).  The CPU tests run it, and
+    composition of ops the model runs off the card, with the KL pieces, and
+    its vector-Jacobian product by autograd).  The CPU tests run it, and
     `chip_smoke.py` holds each kernel against it on the card.
 
-Which of the two an op of `ops/` runs is one stated rule, `use_kernel`
-(through `pick`): the kernel for CUDA float32 operands of a shape it takes,
-the plain version otherwise (float64, a CPU tensor, a Gibbs input of
-dimension above 4, a 2-D RBF input), as the JAX package takes Pallas only
-for float32.
+This module alone decides which of the two an op of `ops/` runs:
+`use_kernel(name, ...)`, through `pick`, gives the kernel for CUDA float32
+operands within the op's limit in `_LIMITS` (Gibbs points of dimension <=
+4, 1-D RBF inputs, the whitened factors' M), the plain version otherwise,
+as the JAX package takes Pallas only for float32.  The quadform backward
+is one op to its callers: `pick` gives the fused kernel or the pair of
+backward kernels by `quadform_bwd_route`.
 
 Sources live in `../csrc/*.cu` (with the shared headers `chol_blocked.cuh`,
 `chol_multi_cta.cuh`, `qf_mma.cuh` and `whitened.cuh`).
@@ -344,25 +344,39 @@ def _device_type(t: torch.Tensor) -> str:
     return t.device.type
 
 
-def use_kernel(*operands, dim: int = 1, max_dim: int = 1) -> bool:
-    """The dispatch rule of the port's ops, the JAX package's own (Pallas
+# The ops whose kernels take only some of the shapes their plain versions
+# take, and what those are; the other kernels raise above their `max_m`.
+_LIMITS = {
+    "gibbs": lambda x1, *_: _kernels._as_points(x1).shape[-1] <= GIBBS_MAX_DIM,
+    "rbf": lambda x1, x2, *_: x1.ndim == 1 and x2.ndim == 1,
+    "whitened_factors": lambda X, *_: X.shape[-1] <= min(
+        max_m("whitened_factors", X.device), max_m("whitened_factors_bwd", X.device)),
+}
+
+
+def use_kernel(name: str, *operands) -> bool:
+    """The one dispatch rule of the port's ops, the JAX package's own (Pallas
     only for float32: `_use_pallas`, ops/kernels.py:78-92, and the
-    quadform's test, ops/linalg.py:407-415): an op runs its kernel when
+    quadform's test, ops/linalg.py:407-415): op `name` runs its kernel when
     every tensor among `operands` lies on a CUDA card in float32 and the
-    input dimension `dim` is at most the kernel's `max_dim`.  Float64, a CPU
-    tensor or a wider input runs the plain version.  A rule, decided before
-    the call: no kernel failure is caught."""
-    return dim <= max_dim and all(
-        _device_type(t) == "cuda" and t.dtype == torch.float32
-        for t in operands if isinstance(t, torch.Tensor)
-    )
+    op's limit in `_LIMITS`, if any, holds; else its plain version.  The
+    device and dtype are judged first: off the card no library is built to
+    read a limit.  Decided before the call: no kernel failure is caught."""
+    on_card = all(_device_type(t) == "cuda" and t.dtype == torch.float32
+                  for t in operands if isinstance(t, torch.Tensor))
+    return on_card and (name not in _LIMITS or _LIMITS[name](*operands))
 
 
-def pick(name: str, *operands, dim: int = 1, max_dim: int = 1):
-    """`{name}_cuda` where `use_kernel(*operands, dim=dim, max_dim=max_dim)`
-    holds, else `{name}_plain`."""
-    route = "cuda" if use_kernel(*operands, dim=dim, max_dim=max_dim) else "plain"
-    return globals()[f"{name}_{route}"]
+def pick(name: str, *operands):
+    """What op `name` runs on `operands`: `{name}_cuda` where
+    `use_kernel(name, *operands)` holds, else `{name}_plain`.  For
+    "quadform_diag_bwd" the kernel route is the fused kernel or, where
+    `quadform_bwd_route` says "pair", the two backward kernels."""
+    if not use_kernel(name, *operands):
+        return globals()[f"{name}_plain"]
+    if name == "quadform_diag_bwd" and quadform_bwd_route(*operands[:2]) == "pair":
+        return _quadform_diag_bwd_pair
+    return globals()[f"{name}_cuda"]
 
 
 def _check_cuda_f32(name: str, *tensors: torch.Tensor) -> torch.device:
@@ -370,8 +384,9 @@ def _check_cuda_f32(name: str, *tensors: torch.Tensor) -> torch.device:
     for t in tensors:
         if t.device != device:
             raise ValueError(f"{name}: all inputs must be on {device}, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the CUDA kernel takes float32, got {t.dtype}")
+        if t.device.type != "cuda" or t.dtype != torch.float32:
+            raise TypeError(f"{name}: the CUDA kernel takes CUDA float32 tensors, got "
+                            f"{t.device.type} {t.dtype}")
     return device
 
 
@@ -397,10 +412,8 @@ def gibbs_plain(x1, x2, ell1, ell2, scale2=1.0):
 
 @_spanned
 def gibbs_cuda(x1, x2, ell1, ell2, scale2=1.0):
-    """Gibbs gram through `csrc/gibbs.cu` for CUDA tensors (float32, d <= 4);
-    `gibbs_plain` for CPU tensors.  Shapes as `gibbs_plain`."""
-    if not x1.is_cuda:
-        return gibbs_plain(x1, x2, ell1, ell2, scale2)
+    """Gibbs gram through `csrc/gibbs.cu` for CUDA float32 tensors (d <= 4).
+    Shapes as `gibbs_plain`."""
     p1, p2 = _kernels._as_points(x1), _kernels._as_points(x2)
     n, d = p1.shape
     m = p2.shape[0]
@@ -462,9 +475,7 @@ def rbf_plain(x1, x2, scale2=1.0, length_scale=1.0):
 @_spanned
 def rbf_cuda(x1, x2, scale2=1.0, length_scale=1.0):
     """RBF gram through `csrc/rbf.cu` for 1-D CUDA float32 inputs, all pairs
-    in one launch; `rbf_plain` for CPU tensors.  Shapes as `rbf_plain`."""
-    if not x1.is_cuda:
-        return rbf_plain(x1, x2, scale2, length_scale)
+    in one launch.  Shapes as `rbf_plain`."""
     if x1.ndim != 1 or x2.ndim != 1:
         raise ValueError(
             f"rbf: the CUDA kernel takes 1-D inputs, got {tuple(x1.shape)} and {tuple(x2.shape)}"
@@ -550,9 +561,7 @@ def kron_mv_cuda(B, K, y):
     with M1, M2 <= max_m("kron_mv") (16) and at most one leading chain axis
     (broadcast across the three operands), one pass over K, read in place:
     as stored or transposed, and once for all chains when it has no chain
-    axis (`_kron_mv_operands`); `kron_mv_plain` for CPU tensors."""
-    if not K.is_cuda:
-        return kron_mv_plain(B, K, y)
+    axis (`_kron_mv_operands`)."""
     Kc, Bc, yc, args, batched = _kron_mv_operands(B, K, y)
     c, n1, n2, m1, m2 = args[:5]
     device = _check_cuda_f32("kron_mv", Kc, Bc, yc)
@@ -601,9 +610,7 @@ def cholesky_cuda(K, route=None):
     """Lower Cholesky factor through `csrc/cholesky.cu` for a CUDA float32
     K (..., M, M), M <= max_m("cholesky"), with `cholesky_plain`'s failure
     semantics, on the route `cholesky_route(M, route)` picks (the one-block
-    route takes M <= ~3400); `cholesky_plain` for a CPU tensor."""
-    if not K.is_cuda:
-        return cholesky_plain(K)
+    route takes M <= ~3400)."""
     Kb, m, device = _square_batch("cholesky", K)
     route = cholesky_route(m, route)
     limit = max_m("cholesky", device, route)
@@ -677,10 +684,7 @@ def chol_inv_cuda(K, route=None):
     float64, the multi-CTA route does not), on the route
     `chol_inv_route(M, route)` picks (the
     resident route takes M <= ~240; the multi-CTA route pads M to a multiple
-    of 64 in a workspace unless it is one); `chol_inv_plain` for a CPU
-    tensor."""
-    if not K.is_cuda:
-        return chol_inv_plain(K, route)
+    of 64 in a workspace unless it is one)."""
     Kb, m, device = _square_batch("chol_inv", K)
     route = chol_inv_route(m, route)
     nb = Kb.shape[0]
@@ -749,15 +753,13 @@ def _quadform_operands(name, A, W, vbar=None):
 def quadform_diag_cuda(A, W):
     """`quadform_diag_plain` through `csrc/quadform_diag.cu` for CUDA float32
     tensors (M <= max_m("quadform_diag"), ~800 on the H100), without the
-    (G, N, M) intermediate; `quadform_diag_plain` for CPU tensors.
+    (G, N, M) intermediate.
 
     W must be lower-triangular in its last two dims, as it is on the path
     (W = Lp^-1 @ tril(sqrt)): the kernel reads only that triangle (what
     lies above it is taken as zero) and skips most of the products with its
     zeros.
     """
-    if not A.is_cuda:
-        return quadform_diag_plain(A, W)
     (Ab, Wb), (s, g, m, n), batched, device = _quadform_operands("quadform_diag", A, W)
     V = (torch.empty if m else torch.zeros)((s, g, n), dtype=torch.float32, device=device)
     if V.numel() and m:
@@ -798,7 +800,7 @@ def quadform_diag_dw_cuda(A, W, vbar):
     float32 tensors (M <= max_m("quadform_diag_dw")), recomputing C tile by
     tile instead of holding the (G, N, M) intermediate, both products on the
     tensor cores by split TF32 operands (`csrc/qf_mma.cuh`; float32-level
-    accuracy); `quadform_diag_dw_plain` for CPU tensors.
+    accuracy).
 
     W must be lower-triangular, as it is on the path (W = Lp^-1 @
     tril(sqrt)).  Only dW's lower triangle is computed and zeros are written
@@ -807,8 +809,6 @@ def quadform_diag_dw_cuda(A, W, vbar):
     of tril(sqrt), which the Cholesky-inverse backward and the tril masks
     drop.
     """
-    if not A.is_cuda:
-        return quadform_diag_dw_plain(A, W, vbar)
     (Ab, Wb, vb), (s, g, m, n), batched, device = _quadform_operands(
         "quadform_diag_dw", A, W, vbar
     )
@@ -824,11 +824,9 @@ def quadform_diag_da_cuda(A, W, vbar):
     """`quadform_diag_da_plain` through `csrc/quadform_diag_da.cu` for CUDA
     float32 tensors (M <= max_m("quadform_diag_da")): partial sums over
     chunks of groups on the tensor cores by split TF32 operands, then a fixed-order
-    reduction of the chunks (both in the kernel's source, deterministic);
-    `quadform_diag_da_plain` for CPU tensors.  W must be lower-triangular:
+    reduction of the chunks (both in the kernel's source, deterministic).
+    W must be lower-triangular:
     only that triangle is read."""
-    if not A.is_cuda:
-        return quadform_diag_da_plain(A, W, vbar)
     (Ab, Wb, vb), (s, g, m, n), batched, device = _quadform_operands(
         "quadform_diag_da", A, W, vbar
     )
@@ -863,11 +861,8 @@ def quadform_diag_bwd_cuda(A, W, vbar):
     float32 tensors (M <= max_m("quadform_diag_bwd")): C once a tile for
     both gradients, on the tensor cores by split TF32 operands, dW's panels
     summed over N in a thread-block cluster and dA's over chunks of groups
-    in a fixed order (deterministic); `quadform_diag_bwd_plain` for CPU
-    tensors.  W must be lower-triangular; dW is its lower triangle, as
-    `quadform_diag_dw_cuda` says.  Returns (dA, dW)."""
-    if not A.is_cuda:
-        return quadform_diag_bwd_plain(A, W, vbar)
+    in a fixed order (deterministic).  W must be lower-triangular; dW is
+    its lower triangle, as `quadform_diag_dw_cuda` says.  Returns (dA, dW)."""
     (Ab, Wb, vb), (s, g, m, n), batched, device = _quadform_operands(
         "quadform_diag_bwd", A, W, vbar
     )
@@ -905,6 +900,13 @@ def quadform_bwd_route(A, W) -> str:
     fused = m <= min(QF_BWD_FUSED_MAX_M, max_m("quadform_diag_bwd", A.device)) and (
         n <= QF_BWD_FUSED_MAX_N or g <= QF_BWD_FUSED_MAX_G_WIDE)
     return "fused" if fused else "pair"
+
+
+def _quadform_diag_bwd_pair(A, W, vbar):
+    """(dA, dW) by the two backward kernels, `quadform_diag_da_cuda` and
+    `quadform_diag_dw_cuda`, looked up in this module at the call (so
+    `plain_versions` reaches them)."""
+    return quadform_diag_da_cuda(A, W, vbar), quadform_diag_dw_cuda(A, W, vbar)
 
 
 # ---------------------------------------------------------------------------
@@ -969,12 +971,10 @@ def whitened_factors_cuda(X, Ps, sizes, jitter):
     """`whitened_factors_plain` through `csrc/whitened_factors.cu` for CUDA
     float32 tensors (M <= max_m("whitened_factors")): X read once, each W
     written once (zeros above its diagonal), the traces and log-determinants
-    summed in the same pass; `whitened_factors_plain` for CPU tensors.  A
+    summed in the same pass.  A
     non-finite entry above X's diagonal makes its column of W NaN on and
     below the diagonal, and the set's trace NaN, as the plain product's
     mask multiply does."""
-    if not X.is_cuda:
-        return whitened_factors_plain(X, Ps, sizes, jitter)
     sizes = tuple(int(n) for n in sizes)
     Ps = tuple(P.contiguous() for P in Ps)
     s, g, m, device = _check_whitened("whitened_factors", X, Ps, sizes)
@@ -1011,10 +1011,7 @@ def whitened_factors_bwd_cuda(X, Ps, sizes, jitter, Ws, dWs, dtrs, dlds):
     for CUDA float32 tensors (M <= max_m("whitened_factors_bwd")): dX
     written once in X's layout, each dP summed over its set's groups by
     blocks and then in a fixed order (deterministic, no atomics), the
-    (S, G, M, M) broadcast gradient never formed;
-    `whitened_factors_bwd_plain` for CPU tensors.  Returns (dX, dPs)."""
-    if not X.is_cuda:
-        return whitened_factors_bwd_plain(X, Ps, sizes, jitter, Ws, dWs, dtrs, dlds)
+    (S, G, M, M) broadcast gradient never formed.  Returns (dX, dPs)."""
     sizes = tuple(int(n) for n in sizes)
     Ps = tuple(P.contiguous() for P in Ps)
     s, g, m, device = _check_whitened("whitened_factors_bwd", X, Ps, sizes)

@@ -59,9 +59,7 @@ class _RBF(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x1, x2, scale2, length_scale):
-        # the RBF kernel takes 1-D inputs
-        rbf = cuda_kernels.pick("rbf", x1, x2, scale2, length_scale, dim=max(x1.ndim, x2.ndim))
-        K = rbf(x1, x2, scale2, length_scale)
+        K = cuda_kernels.pick("rbf", x1, x2, scale2, length_scale)(x1, x2, scale2, length_scale)
         ctx.scale2, ctx.length_scale = scale2, length_scale
         ctx.save_for_backward(x1, x2)
         return K
@@ -124,9 +122,7 @@ class _Gibbs(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x1, x2, ell1, ell2, scale2):
-        gibbs = cuda_kernels.pick("gibbs", x1, x2, ell1, ell2, scale2,
-                                  dim=_as_points(x1).shape[-1], max_dim=cuda_kernels.GIBBS_MAX_DIM)
-        K = gibbs(x1, x2, ell1, ell2, scale2)
+        K = cuda_kernels.pick("gibbs", x1, x2, ell1, ell2, scale2)(x1, x2, ell1, ell2, scale2)
         ctx.scale2 = scale2
         ctx.save_for_backward(x1, x2, ell1, ell2, K)
         return K

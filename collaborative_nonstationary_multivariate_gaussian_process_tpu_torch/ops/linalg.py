@@ -431,11 +431,10 @@ def tri_solve_white(L, Linv, B):
 class WhitenedFactors(NamedTuple):
     """The whitened factors of a parameter's group sets, each field a tuple
     over the sets: W (S, n, M, M) = Lp^-1 @ tril_regularized(sqrt) of the
-    set's groups, and where the kernels computed them with W, the KL
-    pieces trace (S, n) = ||W||_F^2 and logdet_q (n) = sum log |diag
-    tril_regularized(sqrt)| (`kl_gaussian_white_parts`).  Elsewhere trace
-    and logdet_q are None and the KL takes them from W and the parameter,
-    as `kl_gaussian_white` does."""
+    set's groups, and the KL pieces trace (S, n) = ||W||_F^2 and logdet_q
+    (n) = sum log |diag tril_regularized(sqrt)| (`kl_gaussian_white_parts`).
+    The model's `kl_mode="ref_compat"`, whose KL reads neither, whitens the
+    raw factors and leaves them None."""
 
     W: Tuple[torch.Tensor, ...]
     trace: Optional[Tuple[torch.Tensor, ...]]
@@ -488,22 +487,16 @@ def whitened_factors(X, Lp_invs, sizes, jitter=DSVI_JITTER) -> WhitenedFactors:
     factor Lp_inv (S, M, M): W = Lp_inv @ tril_regularized(X[set]), with
     the KL pieces ||W||_F^2 and sum log |diag|.
 
-    Where `cuda_kernels.use_kernel` holds and M is within both kernels'
-    `max_m`, one `torch.autograd.Function` over the two kernels
-    (`_WhitenedFactors`), which also gives the KL pieces ||W||_F^2 and
-    sum log |diag|.  Elsewhere (float64, the CPU, larger M) the composition
-    of ops the model ran before the kernels: `tril_regularized` on the
-    whole X, its slices and one matmul a set, and no KL pieces (None: the
-    KL computes them from W and X, so that autograd adds W's gradients in
-    the same order and the numbers stay bit for bit)."""
+    Where `cuda_kernels.use_kernel` holds, one `torch.autograd.Function`
+    over the two kernels (`_WhitenedFactors`); elsewhere (float64, the CPU,
+    larger M) their plain version under autograd, the composition of ops:
+    `tril_regularized` on the whole X, its slices and one matmul a set."""
     sizes = tuple(int(n) for n in sizes)
     k = len(sizes)
-    if cuda_kernels.use_kernel(X, *Lp_invs) and X.shape[-1] <= min(
-            cuda_kernels.max_m(name, X.device) for name in ("whitened_factors",
-                                                             "whitened_factors_bwd")):
+    if cuda_kernels.use_kernel("whitened_factors", X, *Lp_invs):
         out = _WhitenedFactors.apply(X, jitter, sizes, *Lp_invs)
         return WhitenedFactors(out[:k], out[k:2 * k], out[2 * k:])
-    return WhitenedFactors(whiten(tril_regularized(X, jitter), Lp_invs, sizes), None, None)
+    return WhitenedFactors(*cuda_kernels.whitened_factors_plain(X, Lp_invs, sizes, jitter))
 
 
 def mgp_mean_var_white(A, Lp_inv, d11, mu, scale_tril):
@@ -532,12 +525,10 @@ def mgp_moments_white(A, Lp_inv, d11, mu, W):
 
 
 class _QuadformDiag(torch.autograd.Function):
-    """V = sum_k (A^T W_g)^2 by the forward quadform kernel.  The backward,
-    where both gradients are needed, is the fused backward kernel (dA and
-    dW's lower triangle from one C) at the shapes where
-    `cuda_kernels.quadform_bwd_route` picks it, else the two backward
-    kernels; one gradient alone is its own kernel; each the plain version
-    off `cuda_kernels.use_kernel`'s rule.  Saves A and W, never C: the
+    """V = sum_k (A^T W_g)^2 by the forward quadform kernel.  The backward
+    is the op "quadform_diag_bwd" where both gradients are needed (dA and
+    dW's lower triangle, by the kernels `cuda_kernels.pick` chooses), and
+    one gradient alone its own op.  Saves A and W, never C: the
     kernels recompute C tile by tile, as the JAX package's `_qf_bwd_rule`
     (pallas_kernels.py:636-684) does, so the (G, N, M) intermediate is
     never held."""
@@ -553,10 +544,7 @@ class _QuadformDiag(torch.autograd.Function):
         vbar = vbar.contiguous()  # it may arrive expanded
         dA = dW = None
         if ctx.needs_input_grad[0] and ctx.needs_input_grad[1]:
-            fused = (not cuda_kernels.use_kernel(A, W, vbar)
-                     or cuda_kernels.quadform_bwd_route(A, W) == "fused")
-            if fused:
-                return cuda_kernels.pick("quadform_diag_bwd", A, W, vbar)(A, W, vbar)
+            return cuda_kernels.pick("quadform_diag_bwd", A, W, vbar)(A, W, vbar)
         if ctx.needs_input_grad[0]:
             dA = cuda_kernels.pick("quadform_diag_da", A, W, vbar)(A, W, vbar)
         if ctx.needs_input_grad[1]:

@@ -1,7 +1,7 @@
 """The fused Cholesky + triangular inverse on the CPU: the choice between
 the two routes of `csrc/chol_inv.cu` (the whole matrix resident in one CTA
 below the measured crossover, many CTAs per matrix from it on), which the
-wrapper makes on the host; the wrapper's plain version on a CPU tensor; and
+wrapper makes on the host; the plain version `pick` gives a CPU tensor; and
 the port's differentiable `ops.linalg.chol_tri_inv` against the JAX
 `chol_tri_inv` in float64 (rtol 1e-10 on values, 1e-8 on gradients, each
 with an atol of that fraction of max) on the
@@ -44,9 +44,12 @@ def test_chol_inv_wrapper_takes_the_plain_version_on_cpu(route):
     A = r.standard_normal((3, 9, 9))
     K = torch.as_tensor(A @ A.transpose(0, 2, 1) / 9 + 0.5 * np.eye(9), dtype=torch.float32)
     before = dict(ck.LAUNCHES)
-    L, Linv = ck.chol_inv_cuda(K, route)
-    L_ref, Linv_ref = ck.chol_inv_plain(K)
+    assert ck.pick("chol_inv", K) is ck.chol_inv_plain
+    L, Linv = ck.pick("chol_inv", K)(K, route)
+    L_ref, Linv_ref = ck.chol_inv_plain(K, route)
     assert torch.equal(L, L_ref) and torch.equal(Linv, Linv_ref)
+    with pytest.raises(TypeError, match="CUDA float32"):
+        ck.chol_inv_cuda(K, route)
     assert ck.LAUNCHES == before
 
 
@@ -132,7 +135,7 @@ def test_chol_inv_plain_refactors_a_float32_failure_in_float64():
     that fails in float64 too stays NaN.  On the multi-CTA route, which
     does not refactor, a float32 failure stays NaN."""
     K = _trained_prior_grams()
-    L, Linv = ck.chol_inv_cuda(K)
+    L, Linv = ck.chol_inv_plain(K)
     f32_failed = torch.linalg.cholesky_ex(K)[1] != 0
     L_jax32 = np.asarray(jl.chol_tri_inv(jnp.asarray(K.numpy()))[0])
     L_jax64 = np.asarray(jl.chol_tri_inv(jnp.asarray(K.double().numpy()))[0])
@@ -151,5 +154,5 @@ def test_chol_inv_plain_refactors_a_float32_failure_in_float64():
     lower = torch.ones(100, 100, dtype=torch.bool).tril()
     assert torch.isnan(L[-1][lower]).all() and (L[-1][~lower] == 0).all()
     assert torch.isnan(Linv[-1]).all()
-    L_multi, _ = ck.chol_inv_cuda(K, "multi_cta")
+    L_multi, _ = ck.chol_inv_plain(K, "multi_cta")
     assert torch.equal(torch.isnan(L_multi).flatten(1).any(1), f32_failed)

@@ -62,5 +62,9 @@ def test_cholesky_route_follows_the_measured_crossover():
 def test_cholesky_wrapper_takes_the_plain_version_on_cpu():
     K = torch.as_tensor(_spd(np.random.default_rng(1), 2, 9))
     before = dict(ck.LAUNCHES)
-    assert torch.equal(ck.cholesky_cuda(K, "multi_cta"), ck.cholesky_plain(K))
+    for cpu in (K, K.float()):
+        assert ck.pick("cholesky", cpu) is ck.cholesky_plain
+        assert torch.equal(ck.pick("cholesky", cpu)(cpu), ck.cholesky_plain(cpu))
+        with pytest.raises(TypeError, match="CUDA float32"):
+            ck.cholesky_cuda(cpu, "multi_cta")
     assert ck.LAUNCHES == before

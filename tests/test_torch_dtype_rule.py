@@ -1,6 +1,6 @@
 """The port's dispatch rule on the CPU: an op of `ops/` runs its CUDA kernel
-for float32 operands on a card (of an input dimension the kernel takes),
-and the plain version for float64 or a wider input, as the JAX package
+for float32 operands on a card within the op's limit (`cuda_kernels._LIMITS`),
+and the plain version for float64 or a shape outside it, as the JAX package
 takes Pallas only for float32.
 
 No card here, so the rule is made to see "cuda" by patching the one place
@@ -31,17 +31,38 @@ def _t(a, dtype):
 def test_use_kernel_rule():
     f32 = torch.ones(3)
     f64 = torch.ones(3, dtype=torch.float64)
-    assert not ck.use_kernel(f32)  # a CPU tensor
-    with mock.patch.object(ck, "_device_type", lambda t: "cuda"):
-        assert ck.use_kernel(f32, f32, 1.5)  # non-tensor operands are not judged
-        assert not ck.use_kernel(f64)
-        assert not ck.use_kernel(f32, f64)
-        assert not ck.use_kernel(f32.half())
-        assert ck.use_kernel(f32, dim=4, max_dim=ck.GIBBS_MAX_DIM)
-        assert not ck.use_kernel(f32, dim=5, max_dim=ck.GIBBS_MAX_DIM)
-        assert not ck.use_kernel(f32, dim=2)  # the default max_dim is 1
+
+    def no_query(*args, **kwargs):
+        raise AssertionError("max_m queried for operands off the card")
+
+    with mock.patch.object(ck, "max_m", no_query):  # off the card no library is built
+        for name in ck.KERNELS:
+            assert not ck.use_kernel(name, f32)  # a CPU tensor
+        assert not ck.use_kernel("whitened_factors", torch.ones(2, 300, 300), f32)
+        with mock.patch.object(ck, "_device_type", lambda t: "cuda"):
+            assert not ck.use_kernel("whitened_factors", torch.ones(2, 300, 300, dtype=torch.float64))
+    assert set(ck._LIMITS) == {"gibbs", "rbf", "whitened_factors"}
+    with mock.patch.object(ck, "_device_type", lambda t: "cuda"), \
+            mock.patch.object(ck, "max_m", lambda name, device=None, route=None: 8):
+        assert ck.use_kernel("kron_mv", f32, f32, 1.5)  # non-tensor operands are not judged
+        assert not ck.use_kernel("kron_mv", f64)
+        assert not ck.use_kernel("cholesky", f32, f64)
+        assert not ck.use_kernel("chol_inv", f32.half())
+        # Gibbs: points of dimension <= GIBBS_MAX_DIM
+        assert ck.use_kernel("gibbs", torch.ones(5, ck.GIBBS_MAX_DIM), f32, 1.5)
+        assert ck.use_kernel("gibbs", torch.ones(5), f32)
+        assert not ck.use_kernel("gibbs", torch.ones(5, ck.GIBBS_MAX_DIM + 1), f32)
+        # RBF: 1-D inputs
+        assert ck.use_kernel("rbf", torch.ones(5), torch.ones(4), 1.0, 1.0)
+        assert not ck.use_kernel("rbf", torch.ones(5, 1), torch.ones(4))
+        assert not ck.use_kernel("rbf", torch.ones(5), torch.ones(4, 2))
+        # the whitened factors: M within both kernels' max_m
+        assert ck.use_kernel("whitened_factors", torch.ones(2, 8, 8), torch.ones(1, 8, 8))
+        assert not ck.use_kernel("whitened_factors", torch.ones(2, 9, 9), torch.ones(1, 9, 9))
+        # every other op has no limit of its own: its wrapper raises above its max_m
+        assert ck.use_kernel("quadform_diag", torch.ones(9, 4), torch.ones(2, 9, 9))
     with mock.patch.object(ck, "_device_type", lambda t: "meta"):
-        assert not ck.use_kernel(f32)
+        assert not ck.use_kernel("gibbs", f32)
     assert ck.pick("gibbs", f32) is ck.gibbs_plain
 
 
@@ -76,10 +97,9 @@ CALL_SITES = {
 
 def _whitened(p):
     """Every output of `whitened_factors` on two group sets, flattened (the
-    KL pieces where the route gives them)."""
+    KL pieces included)."""
     wf = linalg.whitened_factors(p["X"], (p["Lw"], p["Lw"]), (2, 1), 1e-4)
-    pieces = wf.W + (wf.trace + wf.logdet_q if wf.trace is not None else ())
-    return torch.cat([t.flatten() for t in pieces])
+    return torch.cat([t.flatten() for t in wf.W + wf.trace + wf.logdet_q])
 
 
 def _run(site, dtype, d=1, bwd_max_m=512):
@@ -135,6 +155,19 @@ def test_inputs_the_kernels_do_not_take_go_to_the_plain_versions(site, d):
     assert grads and all(torch.isfinite(g).all() for g in grads)
     calls, _, _ = _run(site, torch.float32, ck.GIBBS_MAX_DIM if site == "gibbs" else 1)
     assert calls == [site]
+
+
+def test_whitened_factors_above_max_m_take_the_plain_route():
+    """Float32 on the card at M = 6 above a `max_m` of 5: the plain version
+    under autograd, its KL pieces included, and no kernel."""
+    before = dict(ck.LAUNCHES)
+    calls, out, grads = _run("whitened_factors", torch.float32, bwd_max_m=5)
+    assert calls == [] and ck.LAUNCHES == before
+    p = _inputs(torch.float32)
+    Ws, traces, logdets = ck.whitened_factors_plain(p["X"], (p["Lw"], p["Lw"]), (2, 1), 1e-4)
+    assert len(traces) == len(logdets) == 2
+    assert torch.equal(out, torch.cat([t.detach().flatten() for t in Ws + traces + logdets]))
+    assert grads and all(torch.isfinite(g).all() for g in grads)
 
 
 @pytest.mark.parametrize("grads, bwd_max_m, kernels", [

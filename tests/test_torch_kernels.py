@@ -125,14 +125,22 @@ def test_quadform_diag_plain_draw_dimension():
 
 
 def test_wrappers_take_the_plain_version_on_cpu_without_launching():
+    """On CPU tensors `pick` gives each op its plain version, which runs
+    without a launch; the kernel wrapper itself refuses a CPU tensor."""
     r = _rng(4)
     before = dict(ck.LAUNCHES)
     x = torch.as_tensor(np.sort(r.random(8)))
     ell = torch.ones(8, dtype=torch.float64)
-    assert torch.equal(ck.gibbs_cuda(x, x, ell, ell), ck.gibbs_plain(x, x, ell, ell))
     K = torch.as_tensor(_spd(r, 2, 5))
-    for a, b in zip(ck.chol_inv_cuda(K), ck.chol_inv_plain(K)):
-        assert torch.equal(a, b)
     A, W = torch.as_tensor(r.standard_normal((5, 6))), torch.as_tensor(r.standard_normal((2, 5, 5)))
-    assert torch.equal(ck.quadform_diag_cuda(A, W), ck.quadform_diag_plain(A, W))
+    for name, args in (("gibbs", (x, x, ell, ell)), ("chol_inv", (K,)), ("quadform_diag", (A, W))):
+        for dtype in (torch.float64, torch.float32):
+            cpu = tuple(a.to(dtype) for a in args)
+            plain = getattr(ck, f"{name}_plain")
+            assert ck.pick(name, *cpu) is plain
+            got, want = ck.pick(name, *cpu)(*cpu), plain(*cpu)
+            for a, b in zip(*((t,) if torch.is_tensor(t) else t for t in (got, want))):
+                assert torch.equal(a, b)
+            with pytest.raises(TypeError, match="CUDA float32"):
+                getattr(ck, f"{name}_cuda")(*cpu)
     assert ck.LAUNCHES == before

@@ -184,12 +184,19 @@ def test_autograd_function_takes_the_fused_plain_backward_on_cpu(S):
 
 
 def test_backward_wrappers_take_the_plain_versions_on_cpu_without_launching():
-    A, W, vbar = (T(a) for a in _inputs(6, 11, 3, seed=1))
+    """On CPU tensors, float32 too, `pick` gives each backward op its plain
+    version, which runs without a launch; the wrappers refuse them."""
     before = dict(ck.LAUNCHES)
-    assert torch.equal(ck.quadform_diag_dw_cuda(A, W, vbar), ck.quadform_diag_dw_plain(A, W, vbar))
-    assert torch.equal(ck.quadform_diag_da_cuda(A, W, vbar), ck.quadform_diag_da_plain(A, W, vbar))
-    fused, plain = ck.quadform_diag_bwd_cuda(A, W, vbar), ck.quadform_diag_bwd_plain(A, W, vbar)
-    assert all(torch.equal(a, b) for a, b in zip(fused, plain))
+    for dtype in (torch.float64, torch.float32):
+        A, W, vbar = (T(a).to(dtype) for a in _inputs(6, 11, 3, seed=1))
+        for name in ("quadform_diag_dw", "quadform_diag_da", "quadform_diag_bwd"):
+            plain = getattr(ck, f"{name}_plain")
+            assert ck.pick(name, A, W, vbar) is plain
+            got, want = ck.pick(name, A, W, vbar)(A, W, vbar), plain(A, W, vbar)
+            for a, b in zip(*((t,) if torch.is_tensor(t) else t for t in (got, want))):
+                assert torch.equal(a, b)
+            with pytest.raises(TypeError, match="CUDA float32"):
+                getattr(ck, f"{name}_cuda")(A, W, vbar)
     assert ck.LAUNCHES == before
     assert {"quadform_diag_dw", "quadform_diag_da", "quadform_diag_bwd"} <= set(ck.KERNELS)
     assert set(ck.KERNELS) == set(ck.LAUNCHES) == set(ck._ARGTYPES)

@@ -1,16 +1,15 @@
 """The whitened coefficient factors (`linalg.whitened_factors`) on the CPU in
 float64.
 
-Off the card `whitened_factors` is the plain composition the model ran
-before the kernels, op for op: `tril_regularized` on the whole parameter,
-its slices, one matmul a group set, and the KL's trace and log-determinant
-taken by `kl_gaussian_white`.  On the card it is `_WhitenedFactors`, a
-`torch.autograd.Function` over two kernels whose plain versions
-(`cuda_kernels.whitened_factors_plain`, the same composition with the KL
-pieces, and `whitened_factors_bwd_plain`, its vector-Jacobian product by
-autograd) its wrappers return for CPU tensors; here that Function is held
-against the composition, values and gradients, then inside
-`negative_selbo`.
+Off the card `whitened_factors` is the kernels' plain version under
+autograd (`cuda_kernels.whitened_factors_plain`): the composition of ops,
+`tril_regularized` on the whole parameter, its slices, one matmul a group
+set, with the KL's trace and log-determinant.  On the card it is
+`_WhitenedFactors`, a `torch.autograd.Function` over two kernels whose
+plain versions (that composition, and `whitened_factors_bwd_plain`, its
+vector-Jacobian product by autograd) `cuda_kernels.plain_versions` puts in
+their place; here that Function runs through them, held against the
+composition, values and gradients, then inside `negative_selbo`.
 """
 
 import math
@@ -36,6 +35,14 @@ def _fused(X, Lp_invs, sizes, jitter=JITTER):
     k = len(sizes)
     out = linalg._WhitenedFactors.apply(X, jitter, sizes, *Lp_invs)
     return linalg.WhitenedFactors(out[:k], out[k:2 * k], out[2 * k:])
+
+
+@pytest.fixture
+def plain_kernels():
+    """The Function's two kernels replaced by their plain versions while a
+    test runs, its backward included."""
+    with ck.plain_versions(("whitened_factors", "whitened_factors_bwd")):
+        yield
 
 
 def _close(a, b, tol=1e-12):
@@ -97,6 +104,7 @@ def _grads(route, X, K, A, weights, sizes, kl=True):
     return total.detach(), [t.detach() for t in outs], X.grad, K.grad, A.grad
 
 
+@pytest.mark.usefixtures("plain_kernels")
 @pytest.mark.parametrize("S, D", [(1, 4), (3, 4), (1, 1), (3, 1)])
 def test_the_function_matches_the_composition(S, D):
     """Two group sets (D = 4: 6 offdiagonal, 4 diagonal; D = 1: none and
@@ -114,6 +122,7 @@ def test_the_function_matches_the_composition(S, D):
         _close(a, b)
 
 
+@pytest.mark.usefixtures("plain_kernels")
 def test_one_set_as_sqrt_W_takes_it():
     """sqrt_W's one set of D groups with the Gibbs prior's factor."""
     X, K, A, weights = _problem(2, 3, seed=1)
@@ -125,6 +134,7 @@ def test_one_set_as_sqrt_W_takes_it():
         _close(a, b)
 
 
+@pytest.mark.usefixtures("plain_kernels")
 def test_the_prior_factors_gradient_is_whole():
     """Lp^-1's gradient from the Function is the composition's, its strict
     upper part included (it moves K's gradient through the rounding of the
@@ -145,6 +155,7 @@ def test_the_prior_factors_gradient_is_whole():
     _close(grads["fused"], grads["composed"])
 
 
+@pytest.mark.usefixtures("plain_kernels")
 def test_a_nan_above_the_diagonal_and_a_zero_diagonal_entry():
     """A NaN strictly above X's diagonal turns W's column and the set's
     trace NaN on both routes, as the mask multiply does; a zero diagonal
@@ -168,6 +179,7 @@ def test_a_nan_above_the_diagonal_and_a_zero_diagonal_entry():
         _close(a, b)
 
 
+@pytest.mark.usefixtures("plain_kernels")
 def test_without_the_kl_cotangents():
     """A data-parallel shard without the KL: only W's cotangent reaches the
     backward (the traces' and log-determinants' are None)."""
@@ -179,19 +191,25 @@ def test_without_the_kl_cotangents():
 
 
 def test_the_cpu_and_float64_take_the_composition(monkeypatch):
-    """Off the card `whitened_factors` is the composition (no KL pieces) and
-    never the Function; `kl_mode="ref_compat"` does not call it at all."""
+    """Off the card `whitened_factors` is the composition with its KL pieces
+    (W, ||W||^2, sum log |diag|, to 1e-12) and never the Function;
+    `kl_mode="ref_compat"` does not call it at all."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("called off the card or in ref_compat")
+
     X, K, _, _ = _problem(1, 3, seed=5)
     Lp_inv = linalg.chol_tri_inv(K)[1]
-    wf = linalg.whitened_factors(X, (Lp_inv[:, 0], Lp_inv[:, 1]), (3, 3), JITTER)
-    assert wf.trace is None and wf.logdet_q is None
+    with monkeypatch.context() as m:
+        m.setattr(linalg._WhitenedFactors, "apply", refuse)
+        wf = linalg.whitened_factors(X, (Lp_inv[:, 0], Lp_inv[:, 1]), (3, 3), JITTER)
     T = linalg.tril_regularized(X, JITTER)
-    assert torch.equal(wf.W[1], torch.matmul(Lp_inv[:, 1][:, None], T[3:]))
+    for k, cut in enumerate((slice(0, 3), slice(3, 6))):
+        W = torch.matmul(Lp_inv[:, k][:, None], T[cut])
+        _close(wf.W[k], W)
+        _close(wf.trace[k], torch.sum(W * W, dim=(-2, -1)))
+        _close(wf.logdet_q[k], torch.sum(torch.log(torch.abs(torch.diagonal(
+            T[cut], dim1=-2, dim2=-1))), dim=-1))
     params, Z, x, y, idx, w, noise = _ecog_cut(5)
-
-    def refuse(*args, **kwargs):
-        raise AssertionError("whitened_factors called in ref_compat")
-
     monkeypatch.setattr(cnmgp, "whitened_factors", refuse)
     loss = cnmgp.negative_selbo(params, Z, x, y, idx, w, 1000.0, noise, JITTER, "ref_compat")
     assert torch.isfinite(loss)
@@ -225,6 +243,7 @@ def _ecog_cut(seed, D=5, M=10, B=24):
     return params, Z, x, y, idx, w, noise
 
 
+@pytest.mark.usefixtures("plain_kernels")
 @pytest.mark.parametrize("with_kl", [True, False])
 def test_negative_selbo_on_either_route(monkeypatch, with_kl):
     """negative_selbo's loss and every leaf's gradient after the training
@@ -249,12 +268,22 @@ def test_negative_selbo_on_either_route(monkeypatch, with_kl):
 
 
 def test_the_wrappers_return_the_plain_versions_for_cpu_tensors():
-    """The kernel wrappers take CPU tensors to their plain versions, as every
-    wrapper of `cuda_kernels` does; both are counted kernels."""
+    """`pick` gives CPU tensors, float32 too, the plain versions, as it does
+    for every op of `cuda_kernels`, and the kernel wrappers refuse them;
+    both are counted kernels."""
     assert {"whitened_factors", "whitened_factors_bwd"} <= set(ck.KERNELS)
     X, K, _, _ = _problem(2, 3, seed=7)
     Ps = tuple(linalg.chol_tri_inv(K)[1].unbind(1))
-    got = ck.whitened_factors_cuda(X, Ps, (3, 3), JITTER)
-    want = ck.whitened_factors_plain(X, Ps, (3, 3), JITTER)
-    for a, b in zip(got, want):
-        assert all(torch.equal(u, v) for u, v in zip(a, b))
+    before = dict(ck.LAUNCHES)
+    for dtype in (F64, torch.float32):
+        X, Ps = X.to(dtype), tuple(P.to(dtype) for P in Ps)
+        assert ck.pick("whitened_factors", X, *Ps) is ck.whitened_factors_plain
+        got = ck.pick("whitened_factors", X, *Ps)(X, Ps, (3, 3), JITTER)
+        want = ck.whitened_factors_plain(X, Ps, (3, 3), JITTER)
+        for a, b in zip(got, want):
+            assert all(torch.equal(u, v) for u, v in zip(a, b))
+        for wrapper, extra in ((ck.whitened_factors_cuda, ()),
+                               (ck.whitened_factors_bwd_cuda, (got[0], got[0], got[1], got[2]))):
+            with pytest.raises(TypeError, match="CUDA float32"):
+                wrapper(X, Ps, (3, 3), JITTER, *extra)
+    assert ck.LAUNCHES == before
